@@ -12,8 +12,11 @@ imperfect-model series, trains every region's readout through `train_hybrid`
 dry-window hybrid steps with the readout in f32 and in bf16.
 
 Every phase raises on failure, so any fault ends the run with a nonzero exit.
-The line before the last is a JSON object with one entry per kernel of the
-main path; the last line is {"ok": true, "device": {...}}. There is no CPU
+The line before the last is a JSON object with one entry per kernel wrapper
+(its launches on the main path, its error against the plain version, its
+time beside the plain version's, the card's bound for the same work and the
+library's time for the product alone); the last line is
+{"ok": true, "device": {...}}. There is no CPU
 fallback: without a CUDA device the script exits nonzero and prints no
 result.
 """
@@ -32,6 +35,9 @@ TRAIN_CHUNK = 128          # time steps per normal-equation fold
 TRAIN_SAMPLES = 2 * TRAIN_CHUNK   # training pairs after the discard
 PREDICT_STEPS = 6
 N_SYNC = 40
+# NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
 
 
 def _cuda_ms(fn, reps):
@@ -76,7 +82,8 @@ def phase_kernel(R, T, chunk, na):
     """Both wrappers of the kernel against the plain version at the shapes
     one training block gives them (accumulate_ss_scan: the block's T-step
     series; accumulate_ss: its first chunk), the compensation property
-    through the kernel, and the times of each beside the plain version's."""
+    through the kernel, and the times of each beside the plain version's,
+    the card's bound and torch.bmm for the chunk products alone."""
     import numpy as np
     import torch
     from speedyml_torch.ops import accum
@@ -105,10 +112,12 @@ def phase_kernel(R, T, chunk, na):
             tot_k = hi_k[sl].double() + lo_k[sl].double()
             tot_p = hi_p.double() + lo_p.double()
             err = max(err, float((tot_k - tot_p).abs().max()))
-            # rtol 1e-5: the two may sum each chunk's products in another
-            # order in f32 (relative rounding ~6e-8 per term, growing with
-            # the term count); entries that cancel to near zero get the same
-            # 1e-5 as an absolute floor, scaled by the mean entry size
+            # rtol 1e-5: the kernel forms each product from three TF32
+            # tensor-core products of split operands and folds every 32
+            # steps, the plain version sums a chunk in f32 FMA order
+            # (relative rounding ~6e-8 per term, growing with the term
+            # count); entries that cancel to near zero get the same 1e-5 as
+            # an absolute floor, scaled by the mean entry size
             scale = float(tot_p.abs().mean())
             if not torch.allclose(tot_k, tot_p, rtol=1e-5,
                                   atol=1e-5 * scale):
@@ -139,8 +148,35 @@ def phase_kernel(R, T, chunk, na):
               f"{k_ms:.3f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain "
               f"{p_ms:.3f} ms ({flop / p_ms / 1e9:.2f} TFLOP/s) "
               f"[turns {p1:.3f} {k1:.3f} {k2:.3f} {p2:.3f}]")
-        res[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-        del hi_k, lo_k
+
+        # the least time the card could take: hi and lo read once and
+        # written once plus aug read once, over the HBM rate; against the
+        # three TF32 products of the split operands over the tensor cores'
+        # dense TF32 rate. The larger of the two is the bound.
+        byte_ms = 1e3 * 4 * (4 * hi0.numel() + a.numel()) / HBM_BYTES_PER_S
+        op_ms = 1e3 * 3 * flop / TF32_FLOP_PER_S
+
+        # the library's time for the chunk products alone (no fold; the port
+        # never calls it): torch.bmm in f32 on a (R, na, T) copy, into hi_k
+        at = a.permute(1, 2, 0).contiguous()
+
+        def run_l():
+            for c0 in range(0, at.shape[2], chunk):
+                blk = at[:, :, c0:c0 + chunk]
+                torch.bmm(blk, blk.transpose(1, 2), out=hi_k)
+
+        run_l()
+        l_ms = _cuda_ms(run_l, reps)
+        print(f"{name}: bound {max(byte_ms, op_ms):.3f} ms (bytes "
+              f"{byte_ms:.3f}, operations {op_ms:.3f}); torch.bmm f32, "
+              f"product only, {l_ms:.3f} ms")
+        res[name] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            bound_bytes_ms=byte_ms, bound_operations_ms=op_ms,
+            library_ms=l_ms, library_computes="product only")
+        del hi_k, lo_k, at
     del hi0, aug
 
     # the compensation property (tests/test_ops.py:95-114) through the
@@ -298,7 +334,9 @@ def phase_main_path(region_block):
 
     dev = torch.device("cuda")
     rcfg = ReservoirConfig()
-    dy = Dycore(ModelConfig(), device=dev)
+    dy = Dycore(ModelConfig())           # no device given: the card
+    if dy.device.type != "cuda":
+        raise AssertionError(f"Dycore() built on {dy.device}, not the card")
     fc = SpeedyForecaster(dy, hours=rcfg.timestep)
     L = build_layout(ix=dy.config.ix, il=dy.config.il, kx=dy.config.kx,
                      radang_deg=np.degrees(np.asarray(dy.tables.radang)))

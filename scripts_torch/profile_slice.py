@@ -150,7 +150,7 @@ def profile_train_block():
         total = sum(times.values())
         print(f"block repeat {rep + 1}: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in times.items())
-            + f"; of the drive + accumulate, the kernel {k_s:.3f} s and the "
+            + f"; of the drive + accumulate, the kernel {1e3 * k_s:.2f} ms and the "
             f"drive + sy fold {times['drive + accumulate'] - k_s:.3f} s; "
             f"total {total:.3f} s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")

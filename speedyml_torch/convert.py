@@ -1,8 +1,10 @@
 """Carry the JAX package's weights and state into the port.
 
 Each function takes a speedyml object (or anything with the same fields)
-whose arrays numpy can read, and returns the speedyml_torch counterpart on
-`device`. Nothing here imports jax: arrays cross as numpy.
+whose arrays numpy can read, and returns the speedyml_torch counterpart, the
+port's own type, on `device` (the card unless the caller names another).
+Nothing here imports jax or speedyml: objects are read by their fields and
+arrays cross as numpy.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.config import ModelConfig, ReservoirConfig
+from .device import resolve_device
 from .domain.decomposition import RegionLayout
 from .domain.standardize import Standardizer
 from .dynamics.state import SpectralState
@@ -19,10 +23,11 @@ from .hybrid.state_io import GridState
 from .reservoir.esn import EsnParams
 
 
-def tensor(a, device="cpu", dtype: torch.dtype | None = None):
+def tensor(a, device=None, dtype: torch.dtype | None = None):
     """numpy-readable array -> a tensor on device that owns a copy of the
     data (the port updates some tensors in place). bfloat16 (which numpy
     holds as ml_dtypes.bfloat16) crosses through float32, which is exact."""
+    device = resolve_device(device)
     arr = np.array(a)
     if arr.dtype.name == "bfloat16":
         t = torch.as_tensor(arr.astype(np.float32), device=device)
@@ -31,7 +36,7 @@ def tensor(a, device="cpu", dtype: torch.dtype | None = None):
     return t if dtype is None else t.to(dtype)
 
 
-def esn_params(p, device="cpu") -> EsnParams:
+def esn_params(p, device=None) -> EsnParams:
     """speedyml EsnParams -> EsnParams (indices as int64, shifts as ints)."""
     shift = None if p.a_shift is None else tuple(
         int(s) for s in np.asarray(p.a_shift))
@@ -44,7 +49,7 @@ def esn_params(p, device="cpu") -> EsnParams:
                      a_shift=shift)
 
 
-def standardizer(stz, device="cpu") -> Standardizer:
+def standardizer(stz, device=None) -> Standardizer:
     return Standardizer(*(tensor(getattr(stz, f), device)
                           for f in Standardizer._fields))
 
@@ -56,11 +61,26 @@ def region_layout(layout) -> RegionLayout:
     return RegionLayout(**{n: getattr(layout, n) for n in names})
 
 
-def spectral_state(s, device="cpu") -> SpectralState:
+def _config(cls, cfg):
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def model_config(cfg) -> ModelConfig:
+    """speedyml ModelConfig -> the port's ModelConfig, field by field."""
+    return _config(ModelConfig, cfg)
+
+
+def reservoir_config(cfg) -> ReservoirConfig:
+    """speedyml ReservoirConfig -> the port's ReservoirConfig."""
+    return _config(ReservoirConfig, cfg)
+
+
+def spectral_state(s, device=None) -> SpectralState:
     return SpectralState(*(tensor(getattr(s, f), device)
                            for f in SpectralState._fields))
 
 
-def grid_state(gs, device="cpu") -> GridState:
+def grid_state(gs, device=None) -> GridState:
     return GridState(*(tensor(getattr(gs, f), device)
                        for f in GridState._fields))

@@ -15,12 +15,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from speedyml.core.config import ModelConfig
-from speedyml.core.constants import DYN, PHYS
-from speedyml.core.vertical import make_vertical_grid
-from speedyml.transforms.tables import build_tables
-
+from ..core.config import ModelConfig
+from ..core.constants import DYN, PHYS
+from ..core.vertical import make_vertical_grid
+from ..device import resolve_device
 from ..transforms.spectral import SpectralTransform
+from ..transforms.tables import build_tables
 from .hdiff import DiffusionCoefs, build_diffusion, hordif
 from .implicit import (ImplicitCoefs, build_implicit,
                        geopotential_corrections, implicit_correction)
@@ -37,16 +37,17 @@ class Forcing(NamedTuple):
 
 
 class Dycore:
-    """Holds the static coefficients on `device`; exposes the step
-    functions. config.dtype picks float32 or float64 for all state."""
+    """Holds the static coefficients on `device` (the card unless the
+    caller names another); exposes the step functions. config.dtype picks
+    float32 or float64 for all state."""
 
     def __init__(self, config: ModelConfig = ModelConfig(),
                  orog: Optional[np.ndarray] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         if getattr(config, "grid_compute", "float32") != "float32":
             raise NotImplementedError("only float32 grid compute is ported")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = torch.float64 if config.dtype == "float64" \
             else torch.float32
         self.np_dtype = np.float64 if config.dtype == "float64" \

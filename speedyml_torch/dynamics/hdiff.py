@@ -13,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from speedyml.core.constants import DYN
+from ..core.constants import DYN
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,9 @@ class DiffusionCoefs:
 
     def __init__(self, tables: DiffusionTables, dt: float,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
+        device = resolve_device(device)
+
         def as_t(x):
             return torch.as_tensor(np.asarray(x, np.float64)[:, None, :],
                                    dtype=dtype, device=device)

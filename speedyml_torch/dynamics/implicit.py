@@ -14,8 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from speedyml.core.constants import DYN, PHYS
-from speedyml.core.vertical import VerticalGrid
+from ..core.constants import DYN, PHYS
+from ..core.vertical import VerticalGrid
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +108,8 @@ class ImplicitCoefs:
 
     def __init__(self, tables: ImplicitTables,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
+        device = resolve_device(device)
         self.dt = tables.dt
 
         def as_t(x):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from speedyml.core.constants import DYN, PHYS
+from ..core.constants import DYN, PHYS
 
 from .state import SpectralState
 

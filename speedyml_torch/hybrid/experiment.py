@@ -22,10 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from speedyml.core.calendar import ModelDate
-from speedyml.core.config import ReservoirConfig
-from speedyml.reservoir.generate import radius_by_lat
-
+from ..core.calendar import ModelDate
+from ..core.config import ReservoirConfig
 from ..domain.decomposition import (RegionLayout, gather_inputs,
                                     gather_targets, pack_global,
                                     scatter_outputs)
@@ -33,7 +31,7 @@ from ..domain.standardize import (Standardizer, compute_stats_gv,
                                   standardize_in, standardize_out,
                                   unstandardize_out)
 from ..reservoir.esn import EsnParams, predict_step, synchronize
-from ..reservoir.generate import generate_esn
+from ..reservoir.generate import generate_esn, radius_by_lat
 from ..reservoir.training import (drive_and_accumulate, drive_discard,
                                   init_normal_eq, ridge_solve)
 from .forecast import SpeedyForecaster

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from speedyml.transforms.tables import SpectralTables, build_tables
+from ..device import resolve_device
+from .tables import SpectralTables, build_tables
 
 
 def _shift_down(x):
@@ -35,16 +36,17 @@ def _mul_i(x):
 
 
 class SpectralTransform:
-    """Operator constants as tensors on `device` in `dtype`; the methods are
-    plain functions of their tensor arguments."""
+    """Operator constants as tensors on `device` (the card unless the caller
+    names another) in `dtype`; the methods are plain functions of their
+    tensor arguments."""
 
     def __init__(self, tables: SpectralTables | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         t = tables if tables is not None else build_tables()
         self.tables = t
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ix, self.il, self.iy = t.ix, t.il, t.iy
         self.mx, self.nx, self.ntrun = t.mx, t.nx, t.ntrun
 

@@ -3,7 +3,8 @@
 On the CPU the wrappers take the plain PyTorch version, which is held to the
 JAX package's XLA form and to its Pallas kernels in interpret mode at the
 shapes of tests/test_ops.py. The CUDA kernel is held to the plain version
-on the card; that test skips where there is no GPU.
+on the card (rtol 1e-5: split-precision tensor-core products, another
+summation order); that test skips where there is no GPU.
 
 Tolerances: rtol 1e-6 / atol 1e-5 on hi+lo in float64, as
 tests/test_ops.py: each chunk's product is an f32 sum of up to 24 terms of
@@ -24,6 +25,14 @@ from speedyml_torch.ops import accum
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 
 def _tot(hi, lo):
     if isinstance(hi, torch.Tensor):
@@ -39,9 +48,9 @@ def test_chunk_matches_xla_and_pallas():
     hi0 = (rng.normal(size=(R, P, P)) * 10).astype(np.float32)
     lo0 = np.zeros((R, P, P), np.float32)
 
-    hi, lo = convert.tensor(hi0[:, :na, :na]), convert.tensor(lo0[:, :na, :na])
+    hi, lo = to_cpu(hi0[:, :na, :na]), to_cpu(lo0[:, :na, :na])
     before = accum.accumulate_ss.launches
-    out = accum.accumulate_ss(hi, lo, convert.tensor(aug))
+    out = accum.accumulate_ss(hi, lo, to_cpu(aug))
     assert out[0] is hi and out[1] is lo            # updated in place
     tot = _tot(hi, lo)
     for ref in (jacc.accumulate_ss_xla(jnp.asarray(hi0), jnp.asarray(lo0),
@@ -62,8 +71,8 @@ def test_scan_matches_pallas_interpret():
     aug = rng.normal(size=(T, R, na)).astype(np.float32)
     hi0 = rng.normal(size=(R, P, P)).astype(np.float32)
     lo0 = np.zeros((R, P, P), np.float32)
-    hi, lo = convert.tensor(hi0[:, :na, :na]), convert.tensor(lo0[:, :na, :na])
-    accum.accumulate_ss_scan(hi, lo, convert.tensor(aug), chunk)
+    hi, lo = to_cpu(hi0[:, :na, :na]), to_cpu(lo0[:, :na, :na])
+    accum.accumulate_ss_scan(hi, lo, to_cpu(aug), chunk)
     ref = jacc.accumulate_ss_scan(jnp.asarray(hi0), jnp.asarray(lo0),
                                   jnp.asarray(aug), chunk=chunk,
                                   interpret=True)
@@ -85,7 +94,7 @@ def test_compensation_improves_precision():
     plain = np.full((P, P), 1e6, np.float32)
     for _ in range(20):
         a = (rng.normal(size=(8, 1, P)) * 0.01).astype(np.float32)
-        accum.accumulate_ss(hi, lo, convert.tensor(a))
+        accum.accumulate_ss(hi, lo, to_cpu(a))
         d = np.einsum("tra,trb->rab", a.astype(np.float64),
                       a.astype(np.float64))[0]
         ref64 += d
@@ -119,17 +128,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,R,na,chunk", [(20, 2, 136, 8), (37, 3, 200, 16),
-                                          (256, 2, 700, 128)])
+@pytest.mark.parametrize("T,R,na,chunk", [
+    (20, 2, 136, 8), (37, 3, 200, 16), (256, 2, 700, 128),
+    (45, 2, 137, 8),        # odd na: rows of aug and hi/lo start on 4 bytes
+                            # only; 6 chunks; T not a multiple of the 32-step
+                            # stage nor of the 2-stage ring
+    (333, 2, 201, 64),      # 11 stages, the last ragged; odd na
+    (100, 1, 64, 100),      # one tile, one chunk, 4 stages
+    (96, 3, 2048, 32),      # 1536 blocks: several waves over the card, so
+                            # tiles start and end beside running ones
+])
 def test_kernel_matches_plain(cuda_device, T, R, na, chunk):
     """The CUDA kernel against the plain version on the card, with ragged
-    na and T edges and aug read through strides (a (R, T, na) buffer seen
-    as (T, R, na)). rtol 1e-5: f32 chunk sums in another order."""
+    na and T edges, aug read through strides (a (R, T, na) buffer seen as
+    (T, R, na)), and an unsymmetric hi with a nonzero lo to start from.
+    rtol 1e-5: the kernel forms each product from three TF32 tensor-core
+    products of split operands and folds every 32 steps; the plain version
+    sums each chunk in f32, in another order."""
     g = torch.Generator(device=cuda_device).manual_seed(T)
     aug = torch.randn(R, T, na, device=cuda_device, generator=g)
     aug = aug.transpose(0, 1)
     hi0 = torch.randn(R, na, na, device=cuda_device, generator=g) * 10
-    lo0 = torch.zeros_like(hi0)
+    lo0 = torch.randn(R, na, na, device=cuda_device, generator=g) * 1e-6
+    assert not torch.equal(hi0, hi0.mT)
     hk, lk = hi0.clone(), lo0.clone()
     before = accum.accumulate_ss_scan.launches
     accum.accumulate_ss_scan(hk, lk, aug, chunk)

@@ -1,0 +1,121 @@
+"""The port's own copies of speedyml's host modules give what the originals
+give on the same inputs: exact equality, since they are the same numpy code.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from speedyml.core import calendar as jcal
+from speedyml.core import config as jcfg
+from speedyml.core import constants as jconst
+from speedyml.core import vertical as jvert
+from speedyml.reservoir import generate as jgen
+from speedyml.transforms import tables as jtab
+from speedyml_torch import convert
+from speedyml_torch.core import calendar as tcal
+from speedyml_torch.core import config as tcfg
+from speedyml_torch.core import constants as tconst
+from speedyml_torch.core import vertical as tvert
+from speedyml_torch.reservoir import generate as tgen
+from speedyml_torch.transforms import tables as ttab
+
+
+def _assert_same_fields(a, b):
+    fa, fb = dataclasses.fields(a), dataclasses.fields(b)
+    assert [f.name for f in fa] == [f.name for f in fb]
+    for f in fa:
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray):
+            assert va.dtype == vb.dtype, f.name
+            np.testing.assert_array_equal(va, vb, err_msg=f.name)
+        else:
+            assert va == vb, f.name
+
+
+@pytest.mark.parametrize("args", [(), (5, 16, 8)])
+def test_tables(args):
+    _assert_same_fields(jtab.build_tables(*args), ttab.build_tables(*args))
+
+
+def test_gauss_legendre():
+    for a, b in zip(jtab.gauss_legendre(24), ttab.gauss_legendre(24)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kx", sorted(jvert._HSG_TABLES))
+def test_vertical_grid(kx):
+    _assert_same_fields(jvert.make_vertical_grid(kx),
+                        tvert.make_vertical_grid(kx))
+
+
+@pytest.mark.parametrize("name", ["DYN", "PHYS"])
+def test_constants(name):
+    _assert_same_fields(getattr(jconst, name), getattr(tconst, name))
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "ReservoirConfig"])
+def test_config_defaults_and_conversion(name):
+    jc, tc = getattr(jcfg, name)(), getattr(tcfg, name)()
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    # derived properties too
+    for prop in ("mx", "nx", "nsteps", "delt"):
+        if hasattr(jc, prop):
+            assert getattr(jc, prop) == getattr(tc, prop)
+    # convert builds the port's own type, field by field
+    changed = dataclasses.replace(jc, **{
+        "ModelConfig": dict(dtype="float64"),
+        "ReservoirConfig": dict(nodes_per_input=7, ml_only=True)}[name])
+    fn = {"ModelConfig": convert.model_config,
+          "ReservoirConfig": convert.reservoir_config}[name]
+    got = fn(changed)
+    assert type(got) is getattr(tcfg, name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(changed)
+
+
+@pytest.mark.parametrize("start,hours", [((1982, 12, 31, 18), 12),
+                                         ((1984, 2, 28, 0), 48),
+                                         ((1983, 2, 28, 6), 24 * 400)])
+def test_model_date(start, hours):
+    """advance_hours over a year boundary, a leap day and a long stretch."""
+    jd, td = jcal.ModelDate(*start), tcal.ModelDate(*start)
+    for _ in range(hours // 6):
+        jd.advance_hours(6)
+        td.advance_hours(6)
+        assert dataclasses.asdict(jd) == dataclasses.asdict(td)
+        assert (jd.tmonth, jd.tyear) == (td.tmonth, td.tyear)
+    if start[:3] == (1982, 12, 31):
+        assert (td.iyear, td.imonth, td.iday, td.ihour) == (1983, 1, 1, 6)
+
+
+@pytest.mark.parametrize("n,deg", [(40, 4), (5760, 6), (3, 6)])
+def test_ring_helpers(n, deg):
+    np.testing.assert_array_equal(jgen.ring_shifts(n, deg),
+                                  tgen.ring_shifts(n, deg))
+    a = jgen.make_ring_adjacency(np.random.default_rng(3), 2, n, deg)
+    b = tgen.make_ring_adjacency(np.random.default_rng(3), 2, n, deg)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+def test_ell_adjacency_and_win():
+    """The same numpy seed gives the same draws, in the same order."""
+    jr, tr = np.random.default_rng(11), np.random.default_rng(11)
+    for x, y in zip(jgen.make_ell_adjacency(jr, 3, 24, 4),
+                    tgen.make_ell_adjacency(tr, 3, 24, 4)):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(jgen.make_win(jr, 3, 24, 6, 0.5),
+                                  tgen.make_win(tr, 3, 24, 6, 0.5))
+
+
+def test_radius_by_lat():
+    lo = np.array([-90.0, -50.0, -10.0, 40.0, 45.0])
+    hi = np.array([-80.0, -40.0, 10.0, 50.0, 60.0])
+    np.testing.assert_array_equal(jgen.radius_by_lat(lo, hi),
+                                  tgen.radius_by_lat(lo, hi))
+    np.testing.assert_array_equal(
+        jgen.radius_by_lat(lo, hi, 30.0, 0.9, 0.3),
+        tgen.radius_by_lat(lo, hi, 30.0, 0.9, 0.3))

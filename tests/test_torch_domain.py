@@ -21,6 +21,14 @@ from speedyml_torch.domain import standardize as tstd
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 LAYOUTS = {
     "reference": dict(),
     "small": dict(ix=12, il=6, kx=2),
@@ -53,8 +61,8 @@ def test_pack_gather_scatter(layouts):
            for _ in range(4)]
     gv_j = np.asarray(jdec.pack_global(jl, jnp.asarray(atmo),
                                        *map(jnp.asarray, f2d)))
-    gv_t = tdec.pack_global(tl, convert.tensor(atmo),
-                            *map(convert.tensor, f2d))
+    gv_t = tdec.pack_global(tl, to_cpu(atmo),
+                            *map(to_cpu, f2d))
     np.testing.assert_array_equal(gv_t.numpy(), gv_j)
     np.testing.assert_array_equal(
         tdec.gather_inputs(tl, gv_t).numpy(),
@@ -63,7 +71,7 @@ def test_pack_gather_scatter(layouts):
                                   gv_j[jl.target_index])
     out = rng.normal(size=(jl.R, jl.n_out)).astype(np.float32)
     for a, b in zip(jdec.scatter_outputs(jl, jnp.asarray(out)),
-                    tdec.scatter_outputs(tl, convert.tensor(out))):
+                    tdec.scatter_outputs(tl, to_cpu(out))):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     # scattering the targets of a packed state gives the state back
     a2, lp2, pr2 = tdec.scatter_outputs(tl, tdec.gather_targets(tl, gv_t))
@@ -78,21 +86,21 @@ def test_stats_and_apply(layouts):
     T = 7
     gv = (rng.normal(size=(T, jl.gv_len)) * 3.0 + 280.0).astype(np.float32)
     sj = jstd.compute_stats_gv(jl, gv, chunk=3)
-    st = tstd.compute_stats_gv(tl, convert.tensor(gv), chunk=4)
+    st = tstd.compute_stats_gv(tl, to_cpu(gv), chunk=4)
     for f in sj._fields:
         np.testing.assert_allclose(getattr(st, f).numpy(),
                                    np.asarray(getattr(sj, f)), rtol=1e-6)
-    sc = convert.standardizer(sj)
+    sc = convert.standardizer(sj, CPU)
     u = gv[-1][jl.input_index]
     y = gv[-1][jl.target_index]
     for fj, ft, v in ((jstd.standardize_in, tstd.standardize_in, u),
                       (jstd.standardize_out, tstd.standardize_out, y),
                       (jstd.unstandardize_out, tstd.unstandardize_out, y)):
-        np.testing.assert_array_equal(ft(sc, convert.tensor(v)).numpy(),
+        np.testing.assert_array_equal(ft(sc, to_cpu(v)).numpy(),
                                       np.asarray(fj(sj, jnp.asarray(v))))
     # the SST floor
     low = sj._replace(in_std=jnp.asarray(np.full(sj.in_std.shape, 1e-8),
                                          jnp.float32))
     np.testing.assert_array_equal(
-        tstd.floor_sst_std(convert.standardizer(low), tl).in_std.numpy(),
+        tstd.floor_sst_std(convert.standardizer(low, CPU), tl).in_std.numpy(),
         np.asarray(jstd.floor_sst_std(low, jl).in_std))

@@ -32,6 +32,14 @@ from speedyml_torch.dynamics.initial import rest_state
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 N_LEAPFROG = 10
 
 
@@ -61,9 +69,10 @@ def _seeded_state(jd, seed=0):
 
 def _run_pair(dtype, nsteps):
     cfg = ModelConfig(dtype=dtype)
-    jd, td = JaxDycore(cfg), Dycore(cfg)
+    jd = JaxDycore(cfg)
+    td = Dycore(convert.model_config(cfg), device=CPU)
     js = _seeded_state(jd)
-    ts = convert.spectral_state(js)
+    ts = convert.spectral_state(js, CPU)
     jf, tf = jd.zero_forcing(), td.zero_forcing()
     jstep = jax.jit(lambda s, f: jd.step(s, f, 1, 1, "delt2"))
     js = jax.jit(jd.stepone)(js, jf)
@@ -101,7 +110,8 @@ def test_leapfrog_float32():
 def test_rest_state_and_tables(orog):
     orog = None if orog is None else _orography()
     cfg = ModelConfig(dtype="float64")
-    jd, td = JaxDycore(cfg, orog=orog), Dycore(cfg, orog=orog)
+    jd = JaxDycore(cfg, orog=orog)
+    td = Dycore(convert.model_config(cfg), orog=orog, device=CPU)
     _assert_state_close(jax_rest_state(jd), rest_state(td), 0.0)
     np.testing.assert_array_equal(td.phis.numpy(), np.asarray(jd.phis))
     for key in ("half", "delt", "delt2"):
@@ -116,11 +126,12 @@ def test_rest_state_and_tables(orog):
 def test_geopotential_and_implicit_correction():
     cfg = ModelConfig(dtype="float64")
     orog = _orography()
-    jd, td = JaxDycore(cfg, orog=orog), Dycore(cfg, orog=orog)
+    jd = JaxDycore(cfg, orog=orog)
+    td = Dycore(convert.model_config(cfg), orog=orog, device=CPU)
     js = _seeded_state(jd, seed=4)
     t_spec = np.array(js.t[0])
     phi_j = jimp.geopotential(jnp.asarray(t_spec), jd.phis, jd.vg_jnp)
-    phi_t = timp.geopotential(convert.tensor(t_spec), td.phis, td.vg_np,
+    phi_t = timp.geopotential(to_cpu(t_spec), td.phis, td.vg_np,
                               td.geop_corrections)
     scale = np.abs(np.asarray(phi_j)).max()
     np.testing.assert_allclose(phi_t.numpy(), np.asarray(phi_j), rtol=0,
@@ -132,9 +143,9 @@ def test_geopotential_and_implicit_correction():
     psdt = rng.normal(size=(mx, 2, nx))
     out_j = jimp.implicit_correction(jd.imp_main, jnp.asarray(divdt),
                                      jnp.asarray(tdt), jnp.asarray(psdt))
-    out_t = timp.implicit_correction(td.imp_main, convert.tensor(divdt),
-                                     convert.tensor(tdt),
-                                     convert.tensor(psdt))
+    out_t = timp.implicit_correction(td.imp_main, to_cpu(divdt),
+                                     to_cpu(tdt),
+                                     to_cpu(psdt))
     for a, b in zip(out_j, out_t):
         a = np.asarray(a)
         np.testing.assert_allclose(b.numpy(), a, rtol=0,

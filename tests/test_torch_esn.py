@@ -32,6 +32,14 @@ from speedyml_torch.reservoir.generate import generate_esn
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 
 @pytest.fixture(scope="module")
 def esn_pair():
@@ -42,7 +50,7 @@ def esn_pair():
                          m_target=60, deg=5)
     p = p._replace(wout=jnp.asarray(rng.normal(size=p.wout.shape) * 0.1,
                                     jnp.float32))
-    return p, convert.esn_params(p)
+    return p, convert.esn_params(p, CPU)
 
 
 @pytest.mark.parametrize("ring", [True, False])
@@ -58,14 +66,14 @@ def test_spmv_paths(ring):
     want = np.asarray(jesn.spmv_ell(
         jnp.asarray(idx), jnp.asarray(val), jnp.asarray(x),
         None if shifts is None else jnp.asarray(shifts)))
-    got = tesn.spmv_ell(convert.tensor(idx, dtype=torch.int64),
-                        convert.tensor(val), convert.tensor(x),
+    got = tesn.spmv_ell(to_cpu(idx, dtype=torch.int64),
+                        to_cpu(val), to_cpu(x),
                         None if shifts is None
                         else tuple(int(s) for s in shifts))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
     if ring:    # the shifted-slice path == the generic gather
-        generic = tesn.spmv_ell(convert.tensor(idx, dtype=torch.int64),
-                                convert.tensor(val), convert.tensor(x))
+        generic = tesn.spmv_ell(to_cpu(idx, dtype=torch.int64),
+                                to_cpu(val), to_cpu(x))
         np.testing.assert_allclose(got.numpy(), generic.numpy(), rtol=1e-12)
 
 
@@ -74,7 +82,7 @@ def test_generate_esn_same_reservoir():
         jp = jax_generate_esn(seed=3, R=4, n_in=8, n_out=3, n_model=3,
                               m_target=40, deg=4, topology=topology)
         tp = generate_esn(seed=3, R=4, n_in=8, n_out=3, n_model=3,
-                          m_target=40, deg=4, topology=topology)
+                          m_target=40, deg=4, topology=topology, device=CPU)
         np.testing.assert_array_equal(tp.a_idx.numpy(), np.asarray(jp.a_idx))
         np.testing.assert_array_equal(tp.win.numpy(), np.asarray(jp.win))
         np.testing.assert_array_equal(tp.node_map.numpy(),
@@ -92,7 +100,7 @@ def test_generate_esn_radius_float64():
     jp = jax_generate_esn(seed=9, R=2, n_in=4, n_out=2, n_model=0,
                           m_target=32, deg=3, dtype=np.float64)
     tp = generate_esn(seed=9, R=2, n_in=4, n_out=2, n_model=0, m_target=32,
-                      deg=3, dtype=torch.float64)
+                      deg=3, dtype=torch.float64, device=CPU)
     np.testing.assert_allclose(tp.a_val.numpy(), np.asarray(jp.a_val),
                                rtol=1e-12)
 
@@ -104,24 +112,24 @@ def test_advance_synchronize_predict(esn_pair):
     us = rng.normal(size=(5, 3, 6)).astype(np.float32)
     mv = rng.normal(size=(3, 4)).astype(np.float32)
     np.testing.assert_allclose(
-        tesn.advance(tp, convert.tensor(x), convert.tensor(us[0])).numpy(),
+        tesn.advance(tp, to_cpu(x), to_cpu(us[0])).numpy(),
         np.asarray(jax.jit(jesn.advance)(jp, jnp.asarray(x),
                                          jnp.asarray(us[0]))),
         rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(
-        tesn.synchronize(tp, convert.tensor(x), convert.tensor(us)).numpy(),
+        tesn.synchronize(tp, to_cpu(x), to_cpu(us)).numpy(),
         np.asarray(jesn.synchronize(jp, jnp.asarray(x), jnp.asarray(us))),
         rtol=1e-6, atol=1e-6)
     xj, oj = jesn.predict_step(jp, jnp.asarray(x), jnp.asarray(us[1]),
                                jnp.asarray(mv))
-    xt, ot = tesn.predict_step(tp, convert.tensor(x),
-                               convert.tensor(us[1]), convert.tensor(mv))
+    xt, ot = tesn.predict_step(tp, to_cpu(x),
+                               to_cpu(us[1]), to_cpu(mv))
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0,
                                atol=1e-5 * np.abs(np.asarray(oj)).max())
     np.testing.assert_array_equal(
-        tesn.nonlinear_state(convert.tensor(x)).numpy(),
+        tesn.nonlinear_state(to_cpu(x)).numpy(),
         np.asarray(jesn.nonlinear_state(jnp.asarray(x))))
 
 
@@ -130,7 +138,7 @@ def test_readout_dtypes(esn_pair):
     rng = np.random.default_rng(11)
     x = rng.normal(size=(3, tp.n)).astype(np.float32)
     mv = rng.normal(size=(3, 4)).astype(np.float32)
-    xt, mvt = convert.tensor(x), convert.tensor(mv)
+    xt, mvt = to_cpu(x), to_cpu(mv)
     full_j = np.asarray(jesn.readout(jp, jnp.asarray(x), jnp.asarray(mv)))
     full_t = tesn.readout(tp, xt, mvt)
     assert full_t.dtype == torch.float32
@@ -155,7 +163,7 @@ def test_readout_dtypes(esn_pair):
                                atol=1e-5 * max(scale, 1.0))
     # ml-only: no model block
     jp0 = jp._replace(wout=jp.wout[..., 4:])
-    tp0 = convert.esn_params(jp0)
+    tp0 = convert.esn_params(jp0, CPU)
     np.testing.assert_allclose(
         tesn.readout(tp0, xt).numpy(),
         np.asarray(jesn.readout(jp0, jnp.asarray(x))), rtol=0,
@@ -170,8 +178,8 @@ def test_bf16_readout_on_the_card(esn_pair):
         pytest.skip("needs a CUDA device")
     _, tp = esn_pair
     rng = np.random.default_rng(11)
-    x = convert.tensor(rng.normal(size=(3, tp.n)).astype(np.float32))
-    mv = convert.tensor(rng.normal(size=(3, 4)).astype(np.float32))
+    x = to_cpu(rng.normal(size=(3, tp.n)).astype(np.float32))
+    mv = to_cpu(rng.normal(size=(3, 4)).astype(np.float32))
     p16 = tesn.cast_wout(tp)
     want = tesn.readout(p16, x, mv)
     p16_gpu = dataclasses.replace(p16, **{

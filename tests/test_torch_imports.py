@@ -1,13 +1,19 @@
-"""speedyml_torch imports torch and never jax, directly or through what it
-imports (it reuses only speedyml's jax-free host modules)."""
+"""speedyml_torch stands alone: it imports torch, never jax and nothing of
+speedyml, directly or through what it imports (the host modules it needs
+are its own copies); and its entry points build on the card by default."""
 
 import os
+import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICE_MODULES = [
+    "core.calendar", "core.config", "core.constants", "core.vertical",
+    "transforms.tables", "device",
     "transforms.spectral", "dynamics.state", "dynamics.hdiff",
     "dynamics.implicit", "dynamics.tendencies", "dynamics.initial",
     "dynamics.core", "hybrid.state_io", "hybrid.forecast",
@@ -26,18 +32,107 @@ found = sorted(m.name for m in pkgutil.walk_packages(
     speedyml_torch.__path__, "speedyml_torch."))
 for name in found:
     importlib.import_module(name)
-print(len(found), [m for m in sys.modules if m == "jax" or
-                   m.startswith("jax.")])
+print(len(found), [m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "speedyml")])
 """
+
+# an import statement that names speedyml itself (not speedyml_torch)
+_IMPORTS_SPEEDYML = re.compile(
+    r"^\s*(from|import)\s+speedyml(\.|\s)", re.MULTILINE)
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for top in ("speedyml_torch", "scripts_torch"):
+        for root, dirs, files in os.walk(os.path.join(REPO, top)):
+            dirs[:] = [d for d in dirs if d != "build"]   # build outputs
+            paths += [os.path.join(root, f) for f in files
+                      if f.endswith(".py")]
+    return paths
 
 
 def test_port_imports_no_jax():
+    """After importing every module of the package, neither jax nor any
+    speedyml module is loaded."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _PROBE, *SLICE_MODULES],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.strip().split(" ", 1)
-    assert loaded == "[]", f"jax was imported: {loaded}"
+    assert loaded == "[]", f"jax or speedyml was imported: {loaded}"
     # every slice module exists (the package also holds its __init__ files)
     assert int(count) >= len(SLICE_MODULES)
+
+
+def test_port_sources_name_no_speedyml_import():
+    """No source of the port, the smoke script included, imports speedyml
+    or jax."""
+    paths = _port_sources()
+    assert any(p.endswith("chip_smoke.py") for p in paths)
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert not _IMPORTS_SPEEDYML.search(src), path
+        assert not re.search(r"^\s*(from|import)\s+jax\b", src,
+                             re.MULTILINE), path
+
+
+_ENTRY_POINTS = {
+    "Dycore": "from speedyml_torch.dynamics.core import Dycore; Dycore()",
+    "SpectralTransform": ("from speedyml_torch.transforms.spectral import "
+                          "SpectralTransform; SpectralTransform()"),
+    "generate_esn": ("from speedyml_torch.reservoir.generate import "
+                     "generate_esn; generate_esn(0, 2, 4, 2, 2, m_target=8)"),
+    "convert.tensor": ("from speedyml_torch import convert; "
+                       "convert.tensor([1.0, 2.0])"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_point_without_device_needs_the_card(name):
+    """On a machine without a card an entry point called without `device`
+    raises torch's own error; it does not fall back to the CPU. (With a card
+    the same call succeeds and this test has nothing to show.)"""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _ENTRY_POINTS[name]],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0, f"{name} ran without a card"
+    assert "cuda" in res.stderr.lower(), res.stderr[-400:]
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card():
+    """With a card, every entry point called without `device` builds there."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from speedyml_torch import convert
+    from speedyml_torch.dynamics.core import Dycore
+    from speedyml_torch.dynamics.hdiff import DiffusionCoefs, build_diffusion
+    from speedyml_torch.reservoir.generate import generate_esn
+    from speedyml_torch.transforms.spectral import SpectralTransform
+
+    dy = Dycore()
+    assert dy.device.type == "cuda" and dy.phis.is_cuda
+    assert dy.imp_main.tref.is_cuda          # the implicit tables
+    assert SpectralTransform().device.type == "cuda"
+    assert DiffusionCoefs(build_diffusion(30, 31, 32), 2400.0).dmp.is_cuda
+    p = generate_esn(0, 2, 4, 2, 2, m_target=8)
+    assert all(getattr(p, f).is_cuda
+               for f in ("a_idx", "a_val", "win", "wout", "node_map"))
+    assert convert.tensor(np.ones(3)).is_cuda
+
+
+def test_resolve_device():
+    import torch
+    from speedyml_torch.device import resolve_device
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")

@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from speedyml.core.calendar import ModelDate
 from speedyml.core.config import ModelConfig, ReservoirConfig
 from speedyml.domain import decomposition as jdec
 from speedyml.domain import standardize as jstd
@@ -29,6 +28,7 @@ from speedyml.dynamics.core import Dycore as JaxDycore
 from speedyml.hybrid.forecast import SpeedyForecaster as JaxForecaster
 from speedyml.hybrid.state_io import GridState as JaxGridState
 from speedyml.reservoir import esn as jesn
+import speedyml_torch
 from speedyml_torch import convert
 from speedyml_torch.dynamics.core import Dycore
 from speedyml_torch.hybrid.experiment import HybridModel, HybridRunner
@@ -38,6 +38,14 @@ from speedyml_torch.reservoir.generate import generate_esn
 # one intra-op thread: the suite runs in parallel workers beside the JAX
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
+
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
 
 QMIN = 1e-6
 N_STEPS = 2
@@ -74,7 +82,7 @@ def problem():
     # the port draws the reservoir from the same numpy helpers and finds
     # its radius in torch, which is quicker here at 1152 regions
     tp = generate_esn(0, L.R, L.n_in, L.n_out, n_model=L.n_out,
-                      m_target=L.n_in, deg=4)
+                      m_target=L.n_in, deg=4, device=CPU)
     na = L.n_out + tp.n
     params = jesn.EsnParams(
         a_idx=jnp.asarray(tp.a_idx.numpy(), jnp.int32),
@@ -143,13 +151,15 @@ def test_two_dry_hybrid_steps(problem):
     jd, L, params, stz, atmo, logp, pr0, sst, tisr, x0 = problem
     ref, x_ref = _jax_steps(problem)
 
-    td = Dycore(ModelConfig(dtype="float64"))
+    td = Dycore(convert.model_config(ModelConfig(dtype="float64")),
+                device=CPU)
     hm = HybridModel(layout=convert.region_layout(L),
-                     params=convert.esn_params(params),
-                     stz=convert.standardizer(stz), rcfg=ReservoirConfig())
+                     params=convert.esn_params(params, CPU),
+                     stz=convert.standardizer(stz, CPU),
+                     rcfg=convert.reservoir_config(ReservoirConfig()))
     runner = HybridRunner(hm, SpeedyForecaster(td))
-    out = runner.run(convert.tensor(x0), atmo, logp, pr0,
-                     ModelDate(1982, 1, 15, 0), N_STEPS,
+    out = runner.run(to_cpu(x0), atmo, logp, pr0,
+                     speedyml_torch.ModelDate(1982, 1, 15, 0), N_STEPS,
                      sst_fn=lambda d: sst, tisr_fn=lambda d: tisr)
     assert not out["aborted"]
     assert out["atmo"].shape == (N_STEPS, 4, L.kx, L.il, L.ix)

@@ -17,6 +17,8 @@ Tolerances:
     which the ridge fit pins, agree to 0.5% of each field's range.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +37,14 @@ from speedyml_torch.reservoir import training as ttr
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 
 def _tot(hi, lo):
     if isinstance(hi, torch.Tensor):
@@ -48,21 +58,21 @@ def driven():
     rng = np.random.default_rng(3)
     jp = jax_generate_esn(1, R=3, n_in=8, n_out=4, n_model=4, m_target=16,
                           deg=3)
-    tp = convert.esn_params(jp)
+    tp = convert.esn_params(jp, CPU)
     T = 40
     u, y, m = (rng.normal(size=(T, 3, k)).astype(np.float32)
                for k in (8, 4, 4))
     x0 = np.zeros((3, tp.n), np.float32)
     xj = jtr.drive_discard(jp, jnp.asarray(x0), jnp.asarray(u[:6]))
-    xt = ttr.drive_discard(tp, convert.tensor(x0), convert.tensor(u[:6]))
+    xt = ttr.drive_discard(tp, to_cpu(x0), to_cpu(u[:6]))
     accj = jtr.init_normal_eq(jp, 4)._replace(x=xj)
     acct = ttr.init_normal_eq(tp, 4)._replace(x=xt)
     accj = jtr.drive_and_accumulate(jp, accj, jnp.asarray(u[6:]),
                                     jnp.asarray(y[6:]), jnp.asarray(m[6:]),
                                     chunk=8, use_pallas=False)
-    acct = ttr.drive_and_accumulate(tp, acct, convert.tensor(u[6:]),
-                                    convert.tensor(y[6:]),
-                                    convert.tensor(m[6:]), chunk=8)
+    acct = ttr.drive_and_accumulate(tp, acct, to_cpu(u[6:]),
+                                    to_cpu(y[6:]),
+                                    to_cpu(m[6:]), chunk=8)
     return (xj, xt), accj, acct
 
 
@@ -88,7 +98,7 @@ def test_drive_and_accumulate(driven):
 @pytest.mark.parametrize("prior_val", [0.0, 0.5])
 def test_ridge_solve(driven, prior_val):
     _, accj, _ = driven
-    acc = ttr.NormalEq(*(convert.tensor(a) for a in accj))
+    acc = ttr.NormalEq(*(to_cpu(a) for a in accj))
     kw = dict(n_model=4, beta_res=1e-3, beta_model=1.0, prior_val=prior_val,
               use_prior=prior_val != 0.0)
     wj = np.asarray(jtr.ridge_solve(accj, **kw))
@@ -126,7 +136,7 @@ def _small_problem(T=160, seed=5):
     fields = (atmo, logp, precip, sst, tisr)
     gv = jexp.transform_and_pack(L, *fields, rcfg.precip_epsilon)
     gv_t = texp.transform_and_pack(convert.region_layout(L),
-                                   *map(convert.tensor, fields),
+                                   *map(to_cpu, fields),
                                    rcfg.precip_epsilon)
     np.testing.assert_array_equal(gv_t.numpy(), gv)
     gv_model = (gv + 0.3 * np.sin(gv)
@@ -140,12 +150,13 @@ def test_train_hybrid(mode):
     ml = mode == "ml_only"
     hj = jexp.train_hybrid(L, rcfg, gv, None if ml else gv_model, seed=2,
                            region_block=7)
-    ht = texp.train_hybrid(convert.region_layout(L), rcfg,
-                           convert.tensor(gv),
-                           None if ml else convert.tensor(gv_model),
+    ht = texp.train_hybrid(convert.region_layout(L),
+                           convert.reservoir_config(rcfg),
+                           to_cpu(gv),
+                           None if ml else to_cpu(gv_model),
                            seed=2, region_block=7)
     assert ht.ml_only == hj.ml_only == ml
-    assert ht.rcfg == hj.rcfg
+    assert dataclasses.asdict(ht.rcfg) == dataclasses.asdict(hj.rcfg)
     np.testing.assert_array_equal(ht.params.a_val.numpy(),
                                   np.asarray(hj.params.a_val))
     for f in hj.stz._fields:
@@ -160,11 +171,11 @@ def test_train_hybrid(mode):
 
     # one step from synchronized reservoirs: the fits predict the same
     xj = hj.synchronize(gv[100:140])
-    xt = ht.synchronize(convert.tensor(gv[100:140]))
+    xt = ht.synchronize(to_cpu(gv[100:140]))
     mj = None if ml else jnp.asarray(gv_model[141])
-    mt = None if ml else convert.tensor(gv_model[141])
+    mt = None if ml else to_cpu(gv_model[141])
     out_j = hj.step(xj, jnp.asarray(gv[140]), mj)
-    out_t = ht.step(xt, convert.tensor(gv[140]), mt)
+    out_t = ht.step(xt, to_cpu(gv[140]), mt)
     for a, b in zip(out_j, out_t):
         a = np.asarray(a)
         np.testing.assert_allclose(b.numpy(), a, rtol=0,

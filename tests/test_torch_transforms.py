@@ -19,13 +19,21 @@ from speedyml_torch.transforms.spectral import SpectralTransform
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 RTOL = 1e-12
 
 
 @pytest.fixture(scope="module")
 def transforms():
     return (JaxTransform(dtype=jnp.float64),
-            SpectralTransform(dtype=torch.float64))
+            SpectralTransform(dtype=torch.float64, device=CPU))
 
 
 def _spec(jt, rng, lead=(3,)):
@@ -51,7 +59,7 @@ def test_spec_to_grid_and_back(transforms, kcos):
     jt, tt = transforms
     sp = _spec(jt, np.random.default_rng(kcos))
     g_j = jt.spec_to_grid(jnp.asarray(sp), kcos=kcos)
-    g_t = tt.spec_to_grid(convert.tensor(sp), kcos=kcos)
+    g_t = tt.spec_to_grid(to_cpu(sp), kcos=kcos)
     _close(g_j, g_t)
     _close(jt.grid_to_spec(g_j), tt.grid_to_spec(g_t))
     if kcos == 1:
@@ -64,7 +72,7 @@ def test_spectral_operators(transforms):
     rng = np.random.default_rng(7)
     a, b = _spec(jt, rng), _spec(jt, rng)
     aj, bj = jnp.asarray(a), jnp.asarray(b)
-    at, bt = convert.tensor(a), convert.tensor(b)
+    at, bt = to_cpu(a), to_cpu(b)
     for name in ("lap", "invlap", "trunct"):
         _close(getattr(jt, name)(aj), getattr(tt, name)(at))
     for j_out, t_out in ((jt.grad(aj), tt.grad(at)),
@@ -81,7 +89,7 @@ def test_vdspec(transforms, kcos):
     rng = np.random.default_rng(11 + kcos)
     ug, vg = (rng.normal(size=(2, jt.il, jt.ix)) for _ in range(2))
     for x, y in zip(jt.vdspec(jnp.asarray(ug), jnp.asarray(vg), kcos=kcos),
-                    tt.vdspec(convert.tensor(ug), convert.tensor(vg),
+                    tt.vdspec(to_cpu(ug), to_cpu(vg),
                               kcos=kcos)):
         _close(x, y)
 
@@ -102,7 +110,7 @@ def test_float32_tables_match(transforms):
     """The float32 operators are the float64 tables rounded once, as the JAX
     package rounds them."""
     jt = JaxTransform(dtype=jnp.float32)
-    tt = SpectralTransform(dtype=torch.float32)
+    tt = SpectralTransform(dtype=torch.float32, device=CPU)
     for name in ("leg_inv", "leg_fwd", "dft_inv", "dft_fwd", "el2", "uvdym",
                  "gradx", "cosgr"):
         np.testing.assert_array_equal(np.asarray(getattr(jt, name)),

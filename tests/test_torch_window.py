@@ -29,13 +29,21 @@ from speedyml_torch.hybrid.forecast import SpeedyForecaster
 # tests, and oversubscribed torch threads stall every worker
 torch.set_num_threads(1)
 
+# the port's entry points build on the card unless told otherwise; these
+# tests run on the CPU and say so
+CPU = "cpu"
+
+
+def to_cpu(a, dtype=None):
+    return convert.tensor(a, CPU, dtype)
+
 REL = 1e-10
 
 
 @pytest.fixture(scope="module")
 def dycores():
     cfg = ModelConfig(dtype="float64")
-    return JaxDycore(cfg), Dycore(cfg)
+    return JaxDycore(cfg), Dycore(convert.model_config(cfg), device=CPU)
 
 
 def _gridstate(jd, seed=0):
@@ -71,7 +79,7 @@ def test_inject_extract_safety(dycores):
     jd, td = dycores
     gs = _gridstate(jd)
     js, jsafe = jio.inject(jd, jio.GridState(*map(jnp.asarray, gs)))
-    ts, tsafe = tio.inject(td, convert.grid_state(gs))
+    ts, tsafe = tio.inject(td, convert.grid_state(gs, CPU))
     assert bool(jsafe) and bool(tsafe)
     for name in js._fields:
         _assert_close(getattr(js, name), getattr(ts, name))
@@ -82,9 +90,9 @@ def test_inject_extract_safety(dycores):
     for bad in (gs._replace(u=gs.u + 200.0), gs._replace(t=gs.t * 0 + 100.0),
                 gs._replace(q=gs.q + 40.0), gs._replace(v=gs.v - 130.0)):
         assert not bool(jio.safety_check(bad))
-        assert not bool(tio.safety_check(convert.grid_state(bad)))
+        assert not bool(tio.safety_check(convert.grid_state(bad, CPU)))
         assert bool(jio.inject(jd, jio.GridState(*map(jnp.asarray, bad)))[1]) \
-            == bool(tio.inject(td, convert.grid_state(bad))[1])
+            == bool(tio.inject(td, convert.grid_state(bad, CPU))[1])
 
 
 def test_dry_window(dycores):
@@ -96,7 +104,7 @@ def test_dry_window(dycores):
                  jd.zero_forcing())
     fc = SpeedyForecaster(td)
     assert fc.nsteps_window == 24
-    out = fc.forecast(convert.grid_state(gs))
+    out = fc.forecast(convert.grid_state(gs, CPU))
     assert bool(ref.safe) and bool(out.safe)
     for name in ref.gs._fields:
         _assert_close(getattr(ref.gs, name), getattr(out.gs, name))
