@@ -6,10 +6,22 @@
 Builds the port's CUDA kernel from this checkout, holds it against its plain
 PyTorch version at the shapes training gives it, then drives the port's main
 path at reference width (T30L8 grid, 1152 region reservoirs of n=5760 nodes,
-readout 1152 x 136 x 5896): it makes a dry-dycore truth series and an
-imperfect-model series, trains every region's readout through `train_hybrid`
-(whose normal equations go through the kernel), and runs closed-loop
-dry-window hybrid steps with the readout in f32 and in bf16.
+readout 1152 x 136 x 5896), twice:
+
+  * the dry path: a dry-dycore truth series and an imperfect-model series,
+    every region's readout trained through `train_hybrid` (whose normal
+    equations go through the kernel), closed-loop dry-window hybrid steps
+    with the readout in f32 and in bf16;
+  * the full-physics path, the one the model's users run: seeded stand-in
+    boundary files, the full-physics `Speedy` spun up from rest, a truth
+    series through `TrajectoryRunner`, the imperfect-model series through a
+    full-physics `SpeedyForecaster` with the truth's SST, training of all
+    regions, and closed-loop hybrid steps on the runner's own climatological
+    SST and diurnal TISR. One window is timed first and the series sized
+    from it.
+
+Before the two, the column physics on the card is held against the same
+code on the CPU (asked for explicitly) in float64.
 
 Every phase raises on failure, so any fault ends the run with a nonzero exit.
 The line before the last is a JSON object with one entry per kernel wrapper
@@ -28,6 +40,7 @@ import json
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 SEED = 20240101
@@ -35,6 +48,16 @@ TRAIN_CHUNK = 128          # time steps per normal-equation fold
 TRAIN_SAMPLES = 2 * TRAIN_CHUNK   # training pairs after the discard
 PREDICT_STEPS = 6
 N_SYNC = 40
+# the full-physics path: days of spin-up from rest, the fewest and the most
+# training pairs, and the run time [s] the series is sized to stay under
+SPINUP_DAYS = 5
+FULL_PAIRS = (64, 128, 256)
+TARGET_SECONDS = 600.0
+# windows inside the series have run up to 1.5 times as long as the one
+# timed alone just before them (the host sets the pace, and it varies)
+WINDOW_MARGIN = 1.5
+# card against CPU, float64: of each output's largest value
+PHYSICS_TOL = 1e-10
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
@@ -78,12 +101,13 @@ def phase_build():
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernel(R, T, chunk, na):
+def phase_kernel(R, T, chunk, na, only_scan=False):
     """Both wrappers of the kernel against the plain version at the shapes
     one training block gives them (accumulate_ss_scan: the block's T-step
     series; accumulate_ss: its first chunk), the compensation property
     through the kernel, and the times of each beside the plain version's,
-    the card's bound and torch.bmm for the chunk products alone."""
+    the card's bound and torch.bmm for the chunk products alone. With
+    only_scan, the series wrapper alone."""
     import numpy as np
     import torch
     from speedyml_torch.ops import accum
@@ -99,7 +123,7 @@ def phase_kernel(R, T, chunk, na):
          lambda hi, lo: accum.accumulate_ss(hi, lo, aug[:chunk])),
     )
     res = {}
-    for name, a, kern in wrappers:
+    for name, a, kern in wrappers[:1] if only_scan else wrappers:
         hi_k, lo_k = hi0.clone(), torch.zeros_like(hi0)
         kern(hi_k, lo_k)
         # the plain version a few regions at a time, which keeps its
@@ -178,6 +202,8 @@ def phase_kernel(R, T, chunk, na):
             library_ms=l_ms, library_computes="product only")
         del hi_k, lo_k, at
     del hi0, aug
+    if only_scan:
+        return res
 
     # the compensation property (tests/test_ops.py:95-114) through the
     # single-chunk wrapper
@@ -325,19 +351,15 @@ def phase_main_path(region_block):
     from speedyml_torch import ModelConfig, ModelDate, ReservoirConfig
     from speedyml_torch.domain.decomposition import build_layout
     from speedyml_torch.dynamics.core import Dycore
-    from speedyml_torch.hybrid.experiment import (HybridRunner,
-                                                  transform_and_pack,
+    from speedyml_torch.hybrid.experiment import (transform_and_pack,
                                                   train_hybrid)
     from speedyml_torch.hybrid.forecast import SpeedyForecaster
-    from speedyml_torch.hybrid.state_io import GridState, safety_check
-    from speedyml_torch.reservoir.esn import cast_wout, readout
 
-    dev = torch.device("cuda")
     rcfg = ReservoirConfig()
     dy = Dycore(ModelConfig())           # no device given: the card
     if dy.device.type != "cuda":
         raise AssertionError(f"Dycore() built on {dy.device}, not the card")
-    fc = SpeedyForecaster(dy, hours=rcfg.timestep)
+    fc = SpeedyForecaster.dry(dy, hours=rcfg.timestep)
     L = build_layout(ix=dy.config.ix, il=dy.config.il, kx=dy.config.kx,
                      radang_deg=np.degrees(np.asarray(dy.tables.radang)))
     discard = max(1, rcfg.discardlength // rcfg.timestep)
@@ -365,12 +387,8 @@ def phase_main_path(region_block):
                       verbose=True)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    w = hm.params.wout
-    if tuple(w.shape) != (L.R, L.n_out, na) or \
-            not bool(torch.isfinite(w).all()):
-        raise AssertionError(f"wout {tuple(w.shape)} is not a finite "
-                             f"{(L.R, L.n_out, na)}")
-    print(f"train_hybrid: {L.R} regions, na={na}, {nblocks} blocks of "
+    check_trained(hm, L, na)
+    print(f"train_hybrid, dry: {L.R} regions, na={na}, {nblocks} blocks of "
           f"{region_block}: {t_train:.1f} s total, "
           f"{t_train / nblocks:.2f} s/block")
 
@@ -380,13 +398,30 @@ def phase_main_path(region_block):
     sst_fn, tisr_fn = boundary_fns(dy)
     date = ModelDate(date0.iyear, date0.imonth, date0.iday, date0.ihour)
     date.advance_hours(rcfg.timestep * (n_samples - 1))
+    closed_loop("dry", hm, fc, x0, atmo[-1], logp[-1],
+                torch.zeros_like(logp[-1]), date, sst_fn, tisr_fn)
+
+
+def closed_loop(label, hm, fc, x0, atmo0, logp0, precip_t0, date, sst_fn,
+                tisr_fn):
+    """PREDICT_STEPS closed-loop hybrid steps with the readout in f32 and in
+    bf16, each step timed by CUDA events; every state finite and inside the
+    safety bounds, no abort; then the ESN part and the window alone, and the
+    bf16 readout against the f32 one at full width. sst_fn/tisr_fn None
+    means the runner's defaults. Returns {mode: its numbers}."""
+    import torch
+    from speedyml_torch.hybrid.experiment import HybridRunner
+    from speedyml_torch.hybrid.state_io import GridState, safety_check
+    from speedyml_torch.reservoir.esn import cast_wout, readout
+
+    L = hm.layout
+    dev = x0.device
     results = {}
     for mode in ("f32", "bf16"):
         hm_m = hm if mode == "f32" else dataclasses.replace(
             hm, params=cast_wout(hm.params))
         runner = HybridRunner(hm_m, fc)
-        x, a, lp, pt = x0, atmo[-1], logp[-1], torch.zeros_like(logp[-1])
-        d = date
+        x, a, lp, pt, d = x0, atmo0, logp0, precip_t0, date
         step_ms = []
         for _ in range(PREDICT_STEPS):
             t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -396,30 +431,35 @@ def phase_main_path(region_block):
             torch.cuda.synchronize()
             step_ms.append(t1.elapsed_time(t2))
             if out["aborted"]:
-                raise AssertionError(f"{mode}: the safety gate tripped")
+                raise AssertionError(f"{label} {mode}: the safety gate "
+                                     f"tripped")
             x, a, lp, pt, d = (out["x"], out["atmo"][-1], out["logp"][-1],
                                out["precip_t"], out["date"])
             if not all(bool(torch.isfinite(v).all())
                        for v in (x, a, lp, pt)):
-                raise AssertionError(f"{mode}: non-finite state")
+                raise AssertionError(f"{label} {mode}: non-finite state")
         gs = GridState(t=a[0], u=a[1], v=a[2], q=a[3], logp=lp)
         if not bool(safety_check(gs)):
-            raise AssertionError(f"{mode}: final state out of bounds")
+            raise AssertionError(f"{label} {mode}: final state out of bounds")
 
         # the ESN part alone: pack + standardize + advance + readout +
         # scatter on the last state (the window excluded)
-        sst, tisr = sst_fn(d), tisr_fn(d)
+        sst = sst_fn(d) if sst_fn is not None else runner._sst(d)
+        tisr = tisr_fn(d) if tisr_fn is not None else runner._tisr(d)
         gv = runner.pack(a, lp, pt, sst, tisr)
-        model_gv, _ = runner.forecast_gv(a, lp, sst, tisr)
+        model_gv, _ = runner.forecast_gv(a, lp, sst, tisr, d)
         esn_ms = _cuda_ms(lambda: hm_m.step(x, gv, model_gv), 5)
-        win_ms = _cuda_ms(lambda: runner.forecast_gv(a, lp, sst, tisr), 3)
-        results[mode] = dict(step_ms=statistics.median(step_ms), final=a)
-        print(f"predict {mode} wout: {PREDICT_STEPS} steps, median "
+        win_ms = _cuda_ms(lambda: runner.forecast_gv(a, lp, sst, tisr, d), 3)
+        results[mode] = dict(step_ms=statistics.median(step_ms),
+                             step_min=min(step_ms), step_max=max(step_ms),
+                             esn_ms=esn_ms, window_ms=win_ms, final=a)
+        print(f"predict {label}, {mode} wout: {PREDICT_STEPS} steps, median "
               f"{results[mode]['step_ms']:.2f} ms/step "
               f"[{' '.join(f'{s:.1f}' for s in step_ms)}]; ESN part "
               f"{esn_ms:.2f} ms; window + pack {win_ms:.2f} ms; T "
               f"{float(a[0].min()):.1f}..{float(a[0].max()):.1f} K, "
-              f"|u| <= {float(a[1].abs().max()):.1f} m/s")
+              f"|u| <= {float(a[1].abs().max()):.1f} m/s, q <= "
+              f"{float(a[3].max()):.1f} g/kg")
 
     # the bf16 readout holds the documented bound against f32 (<2% of the
     # output scale, tests/test_reservoir.py:67-82), at full width
@@ -433,17 +473,281 @@ def phase_main_path(region_block):
         raise AssertionError(f"bf16 readout off by {dev_rel:.3e} of scale")
     diff = float((results["bf16"]["final"] - results["f32"]["final"])
                  .abs().amax(dim=(1, 2, 3)).max())
-    print(f"bf16 readout vs f32: {dev_rel:.2e} of output scale; after "
-          f"{PREDICT_STEPS} steps max |bf16 - f32| {diff:.3e}")
+    print(f"{label}: bf16 readout vs f32: {dev_rel:.2e} of output scale; "
+          f"after {PREDICT_STEPS} steps max |bf16 - f32| {diff:.3e}")
+    return results
+
+
+def check_trained(hm, L, na):
+    import torch
+    w = hm.params.wout
+    if tuple(w.shape) != (L.R, L.n_out, na) or \
+            not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"wout {tuple(w.shape)} is not a finite "
+                             f"{(L.R, L.n_out, na)}")
+
+
+# ----------------------------------------------------------------------
+# the column physics, card against CPU
+# ----------------------------------------------------------------------
+def phase_physics_card_vs_cpu(bindir):
+    """The float64 model on the card and on the CPU (asked for explicitly),
+    from one state spun up on the card: `step_physics` with and without the
+    shortwave step, and one physics-coupled `dy.step`. Every float output
+    within PHYSICS_TOL of its largest value, every integer output equal."""
+    import torch
+    from speedyml_torch import ModelConfig, convert
+    from speedyml_torch.dynamics.state import SpectralState
+    from speedyml_torch.model import Speedy
+    from speedyml_torch.physics.driver import RadCarry
+
+    cfg = ModelConfig(dtype="float64")
+    card = Speedy(cfg, bindir)
+    host = Speedy(cfg, bindir, device="cpu")
+    if card.device.type != "cuda" or host.device.type != "cpu":
+        raise AssertionError(f"models on {card.device} and {host.device}")
+    card.initialize(1982, 1)
+    card.run_days(1)
+    torch.cuda.synchronize()
+
+    def to_host(tup):
+        return type(tup)(*(v.cpu() for v in tup))
+
+    host.coupler = convert.coupler_state(card.coupler)
+    surf_c, forc_c = card.surf_forcing(card.date)
+    surf_h, forc_h = host.surf_forcing(card.date)
+    state_h, rad_h = to_host(card.state), to_host(card.rad)
+    if not isinstance(state_h, SpectralState) or \
+            not isinstance(rad_h, RadCarry):
+        raise AssertionError("state types lost on the way to the host")
+
+    worst = {}
+
+    def compare(label, got, want):
+        """got (card) against want (CPU), leaf by leaf."""
+        for name, g, w in zip(want._fields, got, want):
+            g = g.cpu()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{label}.{name}: {g.dtype} {g.shape} "
+                                     f"against {w.dtype} {w.shape}")
+            if not g.dtype.is_floating_point:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{label}.{name}: integers differ")
+                continue
+            scale = max(float(w.abs().max()), 1e-300)
+            rel = float((g - w).abs().max()) / scale
+            worst[f"{label}.{name}"] = rel
+            if not rel <= PHYSICS_TOL:
+                raise AssertionError(f"{label}.{name}: card and CPU differ "
+                                     f"by {rel:.3e} of scale {scale:.3e}")
+
+    from typing import NamedTuple
+
+    class Tends(NamedTuple):
+        du: torch.Tensor
+        dv: torch.Tensor
+        dtt: torch.Tensor
+        dqt: torch.Tensor
+
+    for lradsw in (True, False):
+        tag = f"step_physics[sw={int(lradsw)}]"
+        t_c, rad_c, fx_c = card.phys.step_physics(
+            card.dy, card.state.at_level(0), surf_c, card.rad, lradsw)
+        t_h, rad_n, fx_h = host.phys.step_physics(
+            host.dy, state_h.at_level(0), surf_h, rad_h, lradsw)
+        compare(tag + ".tend", Tends(*t_c), Tends(*t_h))
+        compare(tag + ".rad", rad_c, rad_n)
+        compare(tag + ".flux", fx_c, fx_h)
+        conv = float((fx_h.precnv > 0).double().mean())
+        if not 0.0 < conv < 1.0:
+            raise AssertionError(f"convection active in {conv:.0%} of the "
+                                 f"columns: the state does not exercise it")
+    new_c, (rad_c, fx_c) = card.dy.step(
+        card.state, forc_c, 1, 1, "delt2",
+        card._phys_fn(surf_c, card.rad, True))
+    new_h, (rad_n, fx_h) = host.dy.step(
+        state_h, forc_h, 1, 1, "delt2", host._phys_fn(surf_h, rad_h, True))
+    compare("dy.step.state", new_c, new_h)
+    compare("dy.step.rad", rad_c, rad_n)
+    compare("dy.step.flux", fx_c, fx_h)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    print(f"physics, card against CPU, float64: {len(worst)} outputs within "
+          f"{PHYSICS_TOL:g} of scale, integers equal; convection in "
+          f"{conv:.0%} of the columns; largest: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in top))
+
+
+# ----------------------------------------------------------------------
+# the full-physics path
+# ----------------------------------------------------------------------
+def phase_full_physics_path(bindir, region_block, t_run0):
+    """Spin-up -> one timed window -> truth series (TrajectoryRunner) ->
+    model series (full-physics forecaster, the truth's SST) -> train_hybrid
+    over all regions -> closed-loop hybrid steps on the default SST and
+    TISR. Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from speedyml_torch import ModelConfig, ModelDate, ReservoirConfig
+    from speedyml_torch.core.calendar import datetime_from_hours
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import (collect_forecasts,
+                                                  collect_truth,
+                                                  transform_and_pack,
+                                                  train_hybrid)
+    from speedyml_torch.hybrid.forecast import (SpeedyForecaster,
+                                                TrajectoryRunner)
+    from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
+    from speedyml_torch.model import Speedy
+
+    rcfg = ReservoirConfig()
+    sp = Speedy(ModelConfig(), bindir)         # no device given: the card
+    if sp.device.type != "cuda":
+        raise AssertionError(f"Speedy() built on {sp.device}, not the card")
+    cfg = sp.config
+    L = build_layout(ix=cfg.ix, il=cfg.il, kx=cfg.kx,
+                     radang_deg=np.degrees(np.asarray(sp.dy.tables.radang)))
+    runner = TrajectoryRunner(sp, hours=rcfg.timestep)
+    fc = SpeedyForecaster(sp, hours=rcfg.timestep)
+
+    t0 = time.perf_counter()
+    runner.initialize(1982, 1, spinup_days=SPINUP_DAYS)
+    torch.cuda.synchronize()
+    t_spin = time.perf_counter() - t0
+    print(f"full physics: rest start + {SPINUP_DAYS} days in {t_spin:.1f} s "
+          f"({1e3 * t_spin / (SPINUP_DAYS * cfg.nsteps + 2):.1f} ms/step)")
+
+    # one window first: its time sizes the series
+    date = ModelDate(runner.date.iyear, runner.date.imonth, runner.date.iday,
+                     runner.date.ihour)
+    sst0 = np.asarray(runner.cs.sst_am)
+    fc.forecast(runner.gs, date, sst_hybrid=sst0)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    surf, forcing = fc._surf_forcing(date, sst0)
+    torch.cuda.synchronize()
+    sf_ms = 1e3 * (time.perf_counter() - t0)
+    win_ms = [_cuda_ms(lambda: fc.window(runner.gs, surf, forcing), 1)
+              for _ in range(3)]
+    print(f"full-physics window: median {statistics.median(win_ms):.1f} ms "
+          f"[{' '.join(f'{w:.1f}' for w in win_ms)}] by CUDA events; "
+          f"_surf_forcing {sf_ms:.1f} ms on the host")
+    discard = max(1, rcfg.discardlength // rcfg.timestep)
+    per_window = WINDOW_MARGIN * (statistics.median(win_ms) + sf_ms) / 1e3
+    left = TARGET_SECONDS - (time.perf_counter() - t_run0) - 60.0
+    pairs = FULL_PAIRS[0]
+    for cand in FULL_PAIRS[1:]:
+        if 2 * (discard + 1 + cand) * per_window < left:
+            pairs = cand
+    n_samples = discard + 1 + pairs
+    print(f"series sized to {n_samples} samples ({discard} discard + "
+          f"{pairs} pairs): {left:.0f} s left of {TARGET_SECONDS:.0f}, "
+          f"{per_window:.2f} s a window allowed for")
+
+    t0 = time.perf_counter()
+    truth = collect_truth(runner, n_samples)
+    torch.cuda.synchronize()
+    t_truth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_atmo, m_logp, m_precip = collect_forecasts(fc, truth)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    print(f"truth: {n_samples} samples in {t_truth:.1f} s "
+          f"({t_truth / n_samples:.3f} s/sample); model: {n_samples - 1} "
+          f"windows in {t_model:.1f} s ({t_model / (n_samples - 1):.3f} "
+          f"s/window)")
+
+    # what came out is weather: finite, inside the safety bounds, rain
+    # somewhere and not everywhere
+    for label, atmo, precip in (("truth", truth.atmo, truth.precip),
+                                ("model", m_atmo, m_precip)):
+        if not all(bool(torch.isfinite(v).all()) for v in (atmo, precip)):
+            raise AssertionError(f"{label} series has non-finite values")
+        for i, name in enumerate(("t", "u", "v", "q")):
+            lo, hi = SAFE_BOUNDS[name]
+            vmin, vmax = float(atmo[:, i].min()), float(atmo[:, i].max())
+            if not (lo <= vmin and vmax <= hi):
+                raise AssertionError(f"{label} {name} in {vmin:.1f}.."
+                                     f"{vmax:.1f} leaves {lo}..{hi}")
+        if float(precip.min()) < 0.0:
+            raise AssertionError(f"{label} precipitation below zero")
+    wet = float((truth.precip > 0.0).double().mean())
+    if not 0.0 < wet < 1.0:
+        raise AssertionError(f"rain in {wet:.0%} of the truth series: the "
+                             f"moist schemes never fired, or always did")
+    # convection in some columns and not in all, read from one physics step
+    # on the model's last state
+    _, _, fx = sp.phys.step_physics(sp.dy, inject_state(sp, runner.gs),
+                                    surf, sp.rad, True)
+    conv = float((fx.precnv > 0.0).double().mean())
+    if not 0.0 < conv < 1.0:
+        raise AssertionError(f"convection active in {conv:.0%} of columns")
+    print(f"truth series: T {float(truth.atmo[:, 0].min()):.1f}.."
+          f"{float(truth.atmo[:, 0].max()):.1f} K, |u| <= "
+          f"{float(truth.atmo[:, 1].abs().max()):.1f} m/s, q <= "
+          f"{float(truth.atmo[:, 3].max()):.1f} g/kg; rain in {wet:.0%} of "
+          f"cells and windows, mean {float(truth.precip.mean()) * 4:.2f} "
+          f"mm/day, max {float(truth.precip.max()):.1f} mm/6h; convection "
+          f"in {conv:.0%} of the columns")
+
+    eps = rcfg.precip_epsilon
+    gv_truth = transform_and_pack(L, truth.atmo, truth.logp, truth.precip,
+                                  truth.sst, truth.tisr, eps)
+    gv_model = transform_and_pack(L, m_atmo, m_logp, m_precip, truth.sst,
+                                  truth.tisr, eps)
+    del m_atmo, m_logp, m_precip
+    n = rcfg.nodes_per_input // L.n_in * L.n_in
+    na = L.n_out + n
+    nblocks = -(-L.R // region_block)
+    t0 = time.perf_counter()
+    hm = train_hybrid(L, rcfg, gv_truth, gv_model, seed=SEED,
+                      region_block=region_block,
+                      chunk=min(TRAIN_CHUNK, pairs), verbose=True)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    check_trained(hm, L, na)
+    print(f"train_hybrid, full physics: {L.R} regions, na={na}, {pairs} "
+          f"pairs, {nblocks} blocks of {region_block}: {t_train:.1f} s "
+          f"total, {t_train / nblocks:.2f} s/block")
+
+    # closed loop from the last truth sample on the runner's defaults:
+    # climatological SST, analytic diurnal TISR
+    x0 = hm.synchronize(gv_truth[-1 - N_SYNC:-1])
+    date = ModelDate(*datetime_from_hours(int(truth.hours[-1])))
+    precip_t = torch.log1p(torch.clamp(truth.precip[-1], min=0.0) / eps)
+    res = closed_loop("full physics", hm, fc, x0, truth.atmo[-1],
+                      truth.logp[-1], precip_t, date, None, None)
+    return dict(window_ms=statistics.median(win_ms), surf_forcing_ms=sf_ms,
+                s_per_truth_sample=t_truth / n_samples, train_s=t_train,
+                pairs=pairs, step_ms={m: r["step_ms"] for m, r in res.items()})
+
+
+def inject_state(sp, gs):
+    """The physics time level of a grid state, through the safety gate."""
+    from speedyml_torch.hybrid.state_io import inject
+    state, safe = inject(sp.dy, gs)
+    if not bool(safe):
+        raise AssertionError("the state left the safety bounds")
+    return state.at_level(0)
 
 
 def main():
-    name = phase_device()
-    phase_build()
+    t_run0 = time.perf_counter()
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        print(f"phase {label}: {seconds[label]:.1f} s")
+        return out
+
+    name = timed("device", phase_device)
+    timed("build", phase_build)
 
     import torch
     from speedyml_torch import ReservoirConfig
     from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
     from speedyml_torch.ops import accum
 
     # the training block of the main path: every region's normal equations
@@ -451,30 +755,60 @@ def main():
     L, rcfg = build_layout(), ReservoirConfig()
     na = L.n_out + rcfg.nodes_per_input // L.n_in * L.n_in
     region_block = region_block_for(na, torch.cuda.mem_get_info()[0], L.R)
-    kres = phase_kernel(region_block, TRAIN_SAMPLES, TRAIN_CHUNK, na)
+    kres = timed("kernel", phase_kernel, region_block, TRAIN_SAMPLES,
+                 TRAIN_CHUNK, na)
     torch.cuda.empty_cache()     # hand the check's memory back for training
 
-    # count only the main path's launches
-    accum.accumulate_ss_scan.launches = 0
-    accum.accumulate_ss.launches = 0
-    phase_main_path(region_block)
-    launches = accum.accumulate_ss_scan.launches
-    if launches < 1:
-        raise AssertionError("train_hybrid never launched the kernel")
-    print(f"accumulate_ss_scan launches on the main path: {launches}")
+    def counted(label, fn, *args):
+        """fn's phase with the launch counts set to 0 just before it and
+        read just after: only that path's launches."""
+        accum.accumulate_ss_scan.launches = 0
+        accum.accumulate_ss.launches = 0
+        out = timed(label, fn, *args)
+        n = accum.accumulate_ss_scan.launches
+        if n < 1:
+            raise AssertionError(f"{label}: train_hybrid never launched "
+                                 f"the kernel")
+        print(f"accumulate_ss_scan launches on the {label}: {n}")
+        torch.cuda.empty_cache()
+        return out, n, accum.accumulate_ss.launches
 
-    def entry(wrapper, replaces, n):
+    with tempfile.TemporaryDirectory() as bindir:
+        write_synthetic_boundary(bindir, SEED)
+        timed("physics, card against CPU", phase_physics_card_vs_cpu, bindir)
+        torch.cuda.empty_cache()
+        _, n_dry, n_dry_single = counted("dry path", phase_main_path,
+                                         region_block)
+        full, n_full, n_full_single = counted(
+            "full-physics path", phase_full_physics_path, bindir,
+            region_block, t_run0)
+    # the full-physics training gave the kernel another series length: hold
+    # it against the plain version at that shape too
+    at_full = None
+    if full["pairs"] != TRAIN_SAMPLES:
+        at_full = timed("kernel at the full-physics shape", phase_kernel,
+                        region_block, full["pairs"],
+                        min(TRAIN_CHUNK, full["pairs"]), na, True)
+        at_full = dict(T=full["pairs"], **at_full["accumulate_ss_scan"])
+
+    def entry(wrapper, replaces, n, **more):
         return dict(name=wrapper, route="cuda",
                     source="speedyml_torch/ops/csrc/accum.cu",
-                    replaces=replaces, launches=n, **kres[wrapper])
+                    replaces=replaces, launches=n, **kres[wrapper], **more)
 
+    total = time.perf_counter() - t_run0
+    print("seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + f"; total {total:.1f}")
     # the single-chunk wrapper is the same kernel with T == chunk; training
     # does not call it, so it is checked and timed above but listed apart
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
-                          launches)],
+                          n_dry + n_full, launches_dry_path=n_dry,
+                          launches_full_physics_path=n_full,
+                          at_full_physics_shape=at_full)],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
-                           accum.accumulate_ss.launches)]}))
+                           n_dry_single + n_full_single)],
+        "full_physics": full}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

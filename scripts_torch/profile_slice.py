@@ -3,11 +3,14 @@
 
     python3 scripts_torch/profile_slice.py
 
-Two measurements at the reference width of chip_smoke.py:
+Three measurements at the reference width of chip_smoke.py:
 
   * one dry 6-h window (T30L8, f32) under torch.profiler: its time on the
     host clock, the device time of its kernels, their number, and the kernels
     that take the most device time;
+  * the same for one full-physics window (seeded stand-in boundary files,
+    the model spun up two days from rest), beside the host time of
+    `_surf_forcing`, which builds the window's boundary state;
   * one training block (the regions chip_smoke.py trains at a time, n=5760,
     na=5896, 256 training pairs) split by phase, with a synchronize between
     phases: reservoir generation, discard, drive + accumulation, the
@@ -22,6 +25,7 @@ Needs a CUDA device; exits nonzero without one.
 from __future__ import annotations
 
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,35 +42,31 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def profile_window():
+def profile_window(label, run, nsteps):
+    """One call of run() (a window) timed without the profiler and then
+    under it: host clock, device time, launches, the top device kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from speedyml_torch import ModelConfig
-    from speedyml_torch.dynamics.core import Dycore
-    from speedyml_torch.hybrid.forecast import SpeedyForecaster
 
-    dy = Dycore(ModelConfig(), device=torch.device("cuda"))
-    fc = SpeedyForecaster(dy)
-    gs = smooth_gridstate(dy, SEED)
-    fc.forecast(gs)                              # warm-up
+    run()                                        # warm-up
     torch.cuda.synchronize()
 
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    fc.forecast(gs)
+    run()
     stop.record()
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0)
-    print(f"window: {host_ms:.2f} ms host clock, {start.elapsed_time(stop):.2f}"
-          f" ms CUDA events (no profiler)")
+    print(f"{label} window: {host_ms:.2f} ms host clock, "
+          f"{start.elapsed_time(stop):.2f} ms CUDA events (no profiler)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fc.forecast(gs)
+        run()
         torch.cuda.synchronize()
         prof_host_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -75,14 +75,59 @@ def profile_window():
     dev_ms = sum(_self_device_us(e) for e in kernels) / 1e3
     if n_launch == 0 or dev_ms == 0.0:
         raise RuntimeError("the profiler recorded no device kernels")
-    print(f"window under the profiler: {prof_host_ms:.2f} ms host clock, "
-          f"{dev_ms:.3f} ms device time in {n_launch} kernel launches "
-          f"({n_launch / fc.nsteps_window:.0f} per dycore step); device idle "
-          f"{100 * (1 - dev_ms / prof_host_ms):.1f}% of the host time")
+    print(f"{label} window under the profiler: {prof_host_ms:.2f} ms host "
+          f"clock, {dev_ms:.3f} ms device time in {n_launch} kernel launches "
+          f"({n_launch / nsteps:.0f} per dycore step); device idle "
+          f"{100 * (1 - dev_ms / prof_host_ms):.1f}% of the profiled host "
+          f"time, {100 * (1 - dev_ms / host_ms):.1f}% of the unprofiled")
     for e in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
         us = _self_device_us(e)
         print(f"  {us / 1e3:8.3f} ms {e.count:6d} x {us / e.count:7.2f} us  "
               f"{e.key[:90]}")
+
+
+def profile_dry_window():
+    import torch
+    from speedyml_torch import ModelConfig
+    from speedyml_torch.dynamics.core import Dycore
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+
+    dy = Dycore(ModelConfig(), device=torch.device("cuda"))
+    fc = SpeedyForecaster.dry(dy)
+    gs = smooth_gridstate(dy, SEED)
+    profile_window("dry", lambda: fc.forecast(gs), fc.nsteps_window + 1)
+
+
+def profile_full_physics_window():
+    import numpy as np
+    import torch
+    from speedyml_torch import ModelConfig, ModelDate
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+    from speedyml_torch.hybrid.state_io import extract
+    from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
+    from speedyml_torch.model import Speedy
+
+    with tempfile.TemporaryDirectory() as bindir:
+        sp = Speedy(ModelConfig(), write_synthetic_boundary(bindir, SEED))
+    sp.initialize(1982, 1)
+    sp.run_days(2)
+    gs = extract(sp.dy, sp.state)
+    date = ModelDate(sp.date.iyear, sp.date.imonth, sp.date.iday, 0)
+    sst = np.asarray(sp.coupler.sst_am)
+    fc = SpeedyForecaster(sp)
+
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        surf, forcing = fc._surf_forcing(date, sst)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(f"_surf_forcing (coupler init, fordate with two host transforms, "
+          f"upload): {sorted(times)[len(times) // 2]:.2f} ms median on the "
+          f"host clock [{' '.join(f'{t:.2f}' for t in times)}]")
+    profile_window("full-physics", lambda: fc.window(gs, surf, forcing),
+                   fc.nsteps_window + 1)
 
 
 def profile_train_block():
@@ -159,7 +204,8 @@ def profile_train_block():
 
 def main():
     phase_device()
-    profile_window()
+    profile_dry_window()
+    profile_full_physics_window()
     profile_train_block()
 
 

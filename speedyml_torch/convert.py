@@ -15,11 +15,14 @@ import numpy as np
 import torch
 
 from .core.config import ModelConfig, ReservoirConfig
+from .coupler.climatology import Climatology
+from .coupler.daily import CouplerState
 from .device import resolve_device
 from .domain.decomposition import RegionLayout
 from .domain.standardize import Standardizer
 from .dynamics.state import SpectralState
 from .hybrid.state_io import GridState
+from .physics.driver import RadCarry, SurfaceDailyState
 from .reservoir.esn import EsnParams
 
 
@@ -84,3 +87,35 @@ def spectral_state(s, device=None) -> SpectralState:
 def grid_state(gs, device=None) -> GridState:
     return GridState(*(tensor(getattr(gs, f), device)
                        for f in GridState._fields))
+
+
+def surface_state(surf, device=None,
+                  dtype: torch.dtype | None = None) -> SurfaceDailyState:
+    """speedyml SurfaceDailyState (numpy or jax leaves) -> the port's."""
+    return SurfaceDailyState(*(tensor(getattr(surf, f), device, dtype)
+                               for f in SurfaceDailyState._fields))
+
+
+def rad_carry(rad, device=None) -> RadCarry:
+    return RadCarry(*(tensor(getattr(rad, f), device)
+                      for f in RadCarry._fields))
+
+
+def _host_dataclass(cls, obj):
+    """A host-side (numpy) dataclass of the port from an object with the
+    same fields; arrays are copied, since the coupler updates its state."""
+    fields = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        fields[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
+    return cls(**fields)
+
+
+def coupler_state(cs) -> CouplerState:
+    """speedyml CouplerState -> the port's CouplerState (host numpy)."""
+    return _host_dataclass(CouplerState, cs)
+
+
+def climatology(clim) -> Climatology:
+    """speedyml Climatology -> the port's Climatology (host numpy)."""
+    return _host_dataclass(Climatology, clim)

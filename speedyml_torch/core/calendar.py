@@ -1,9 +1,11 @@
-"""The dycore's calendar (the port's own copy of `ModelDate` from
+"""Calendars (the port's own copy of what it calls from
 speedyml/core/calendar.py).
 
-`ModelDate`: the 365-day calendar with the reference's leap-day quirk
-(mod_date.f90:newdate — Feb 29 exists when iyear%4==0 but tyear is always
-computed on the 365-day year).
+1. `ModelDate`: the dycore's 365-day calendar with the reference's leap-day
+   quirk (mod_date.f90:newdate — Feb 29 exists when iyear%4==0 but tyear is
+   always computed on the 365-day year).
+2. Hour-resolution calendar arithmetic from a 1981-01-01 epoch for the
+   ML/hybrid side (reference: src/mod_calendar.f90).
 """
 
 from __future__ import annotations
@@ -54,3 +56,53 @@ class ModelDate:
     @property
     def tyear(self) -> float:
         return (_CUMDAYS[self.imonth - 1] + self.iday - 0.5) / 365.0
+
+
+def is_leap(year: int) -> bool:
+    return year % 4 == 0 and (year % 100 != 0 or year % 400 == 0)
+
+
+def days_in_month(year: int, month: int) -> int:
+    if month == 2 and is_leap(year):
+        return 29
+    return _NDAYS[month - 1]
+
+
+EPOCH_YEAR = 1981
+
+
+def hours_since_epoch(year: int, month: int, day: int, hour: int) -> int:
+    """numof_hours from the 1981-01-01 00 epoch (mod_calendar.f90:69-120);
+    leap-year aware."""
+    days = 0
+    if year >= EPOCH_YEAR:
+        for y in range(EPOCH_YEAR, year):
+            days += 366 if is_leap(y) else 365
+    else:
+        for y in range(year, EPOCH_YEAR):
+            days -= 366 if is_leap(y) else 365
+    for m in range(1, month):
+        days += days_in_month(year, m)
+    days += day - 1
+    return days * 24 + hour
+
+
+def datetime_from_hours(hours: int):
+    """Inverse of hours_since_epoch: (year, month, day, hour)."""
+    days, hour = divmod(hours, 24)
+    year = EPOCH_YEAR
+    while True:
+        ylen = 366 if is_leap(year) else 365
+        if days >= ylen:
+            days -= ylen
+            year += 1
+        elif days < 0:
+            year -= 1
+            days += 366 if is_leap(year) else 365
+        else:
+            break
+    month = 1
+    while days >= days_in_month(year, month):
+        days -= days_in_month(year, month)
+        month += 1
+    return year, month, days + 1, hour

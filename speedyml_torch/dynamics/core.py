@@ -10,7 +10,7 @@ tables for the three dt values of the stepone bootstrap ("half", "delt",
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -157,19 +157,23 @@ class Dycore:
         return torch.stack([f0, f1], dim=0)
 
     def step(self, state: SpectralState, forcing: Forcing, j1: int, j2: int,
-             dt_key: str) -> SpectralState:
+             dt_key: str, phys_fn: Optional[Callable] = None):
         """One (forward or leapfrog) time step (dyn_step.f90:1-128).
 
         j1/j2 are 0-based time-level indices (reference's J1-1/J2-1):
           j1=0, j2=0: forward step; j1=0, j2=1: initial leapfrog;
           j1=1, j2=1: filtered leapfrog.
+
+        Returns the new state, or (state, extras) when phys_fn is given
+        (the grtend hook's contract).
         """
         cfg = self.config
         imp = self._imp[dt_key]
         dif = self._dif[dt_key]
         dt = self._dt[dt_key]
 
-        tend = grtend(self, state.at_level(j2))
+        tend, extras = grtend(self, state.at_level(j2), state.at_level(0),
+                              phys_fn)
         if cfg.alph == 0.0:
             tend = sptend(self, state.at_level(j2), tend, imp)
         else:
@@ -186,14 +190,20 @@ class Dycore:
         def ti(field, fdt):
             return self._timint(field, fdt, j1=j1, dt=dt, eps=eps, wil=wil)
 
-        return SpectralState(vor=ti(state.vor, tend.vordt),
-                             div=ti(state.div, tend.divdt),
-                             t=ti(state.t, tend.tdt),
-                             ps=ti(state.ps, tend.psdt),
-                             tr=ti(state.tr, tend.trdt))
+        new_state = SpectralState(vor=ti(state.vor, tend.vordt),
+                                  div=ti(state.div, tend.divdt),
+                                  t=ti(state.t, tend.tdt),
+                                  ps=ti(state.ps, tend.psdt),
+                                  tr=ti(state.tr, tend.trdt))
+        if phys_fn is None:
+            return new_state
+        return new_state, extras
 
-    def stepone(self, state: SpectralState,
-                forcing: Forcing) -> SpectralState:
+    def stepone(self, state: SpectralState, forcing: Forcing,
+                phys_fn: Optional[Callable] = None):
         """Initial forward + leapfrog half-steps (ini_stepone.f90:14-31)."""
-        state = self.step(state, forcing, 0, 0, "half")
-        return self.step(state, forcing, 0, 1, "delt")
+        if phys_fn is None:
+            state = self.step(state, forcing, 0, 0, "half")
+            return self.step(state, forcing, 0, 1, "delt")
+        state, _ = self.step(state, forcing, 0, 0, "half", phys_fn)
+        return self.step(state, forcing, 0, 1, "delt", phys_fn)

@@ -3,13 +3,15 @@ port of speedyml/dynamics/tendencies.py).
 
 `grtend` (src/dyn_grtend.f90) and `sptend` (src/dyn_sptend.f90) as batched
 functions: per-level loops become a leading kx axis, vertical loops become
-cumulative sums and stacked slices. This port carries the dry path only
-(no physics callback) in full precision.
+cumulative sums and stacked slices, in full precision (the reduced-precision
+grid compute of the JAX package is not ported).
 
 Grid arrays are (kx, il, ix); spectral arrays (kx, mx, 2, nx).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -17,9 +19,18 @@ from .implicit import ImplicitCoefs, geopotential
 from .state import PrognosticFields, Tendencies
 
 
-def grtend(dy, fdyn: PrognosticFields) -> Tendencies:
-    """Nonlinear grid-space tendencies -> spectral (dyn_grtend.f90:1-279),
-    with no physics. fdyn: fields at the dynamics time level (j2)."""
+def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
+           phys_fn: Optional[Callable] = None):
+    """Nonlinear grid-space tendencies -> spectral (dyn_grtend.f90:1-279).
+
+    fdyn: fields at the dynamics time level (j2); fphy: at the physics time
+    level (j1). phys_fn(dy, fphy) must return ((utend, vtend, ttend, trtend),
+    extras): grid-space tendency increments added before the spectral
+    conversion (phy_phypar.f90 contract) plus whatever the caller threads
+    through (radiation carry, fluxes).
+
+    Returns (Tendencies, extras); extras is None without phys_fn.
+    """
     T = dy.T
     vg = dy.vgt
     dhs, dhsr, fsgr = vg["dhs"], vg["dhsr"], vg["fsgr"]
@@ -101,6 +112,15 @@ def grtend(dy, fdyn: PrognosticFields) -> Tendencies:
               - (iface_tr[:, 1:] + iface_tr[:, :-1])
               * dhsr[None, :, None, None])
 
+    # physics (phy_phypar contract: adds to the grid tendencies)
+    extras = None
+    if phys_fn is not None:
+        (du, dv, dtt, dtrt), extras = phys_fn(dy, fphy)
+        utend = utend + du
+        vtend = vtend + dv
+        ttend = ttend + dtt
+        trtend = trtend + dtrt
+
     # back to spectral (dyn_grtend.f90:233-277): one batched vdspec over
     # [wind | T-flux | tracer-flux], one grid_to_spec over [ke | T | tracer]
     u_side = torch.cat([utend, -ug * tgg,
@@ -121,7 +141,7 @@ def grtend(dy, fdyn: PrognosticFields) -> Tendencies:
     trdt = trdt_flux + s1[2 * kx:].reshape(ntr, kx, *s1.shape[1:])
 
     return Tendencies(vordt=vordt, divdt=divdt, tdt=tdt, psdt=psdt,
-                      trdt=trdt)
+                      trdt=trdt), extras
 
 
 def sptend(dy, f: PrognosticFields, tend: Tendencies,

@@ -1,5 +1,6 @@
-"""Hybrid training and prediction (PyTorch port of the dry-window slice of
-speedyml/hybrid/experiment.py).
+"""Hybrid training and prediction (PyTorch port of speedyml/hybrid/
+experiment.py: data collection, training and the prediction loop; the slab
+ocean, the writers and the checkpoints are not ported).
 
 The global state lives in ONE packed supervector on the device; reservoir
 input packing is a gather, output scattering a reshape, and the SPEEDY
@@ -17,13 +18,15 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.calendar import ModelDate
+from ..core.calendar import (ModelDate, datetime_from_hours,
+                             hours_since_epoch)
 from ..core.config import ReservoirConfig
+from ..coupler.daily import init_coupler_state
 from ..domain.decomposition import (RegionLayout, gather_inputs,
                                     gather_targets, pack_global,
                                     scatter_outputs)
@@ -34,7 +37,8 @@ from ..reservoir.esn import EsnParams, predict_step, synchronize
 from ..reservoir.generate import generate_esn, radius_by_lat
 from ..reservoir.training import (drive_and_accumulate, drive_discard,
                                   init_normal_eq, ridge_solve)
-from .forecast import SpeedyForecaster
+from ..physics.radiation import diurnal_tisr
+from .forecast import SpeedyForecaster, TrajectoryRunner
 from .state_io import GridState
 
 QMIN = 1e-6     # q floor [g/kg] (reference training-data clamp)
@@ -47,6 +51,62 @@ PRECIP_MM_CAP = 40.0
 def clamp_precip_t(pr_t, eps: float, cap_mm: float = PRECIP_MM_CAP):
     """Clamp the transformed log-precip channel to [0, log1p(cap/eps)]."""
     return torch.clamp(pr_t, 0.0, math.log1p(cap_mm / eps))
+
+
+class TruthSeries(NamedTuple):
+    """A 6-hourly series on the device (the ERA5-training-set analog)."""
+
+    atmo: torch.Tensor    # (T, nvars=4, kx, il, ix) order (T, u, v, q)
+    logp: torch.Tensor    # (T, il, ix)
+    precip: torch.Tensor  # (T, il, ix) raw mm per window
+    sst: torch.Tensor     # (T, il, ix)
+    tisr: torch.Tensor    # (T, il, ix)
+    hours: np.ndarray     # (T,) hours since epoch per sample
+
+
+def collect_truth(runner: TrajectoryRunner, n_samples: int) -> TruthSeries:
+    """Advance the truth trajectory n_samples windows, recording each."""
+    atmo, logp, precip, sst, tisr, hours = [], [], [], [], [], []
+    for _ in range(n_samples):
+        s = runner.advance()
+        atmo.append(grid_to_atmo(s.gs))
+        logp.append(s.gs.logp)
+        precip.append(s.precip_mm)
+        sst.append(s.sst)
+        tisr.append(s.tisr)
+        d = runner.date
+        hours.append(hours_since_epoch(d.iyear, d.imonth, d.iday, d.ihour))
+    dev, dtype = logp[0].device, logp[0].dtype
+    return TruthSeries(
+        atmo=torch.stack(atmo), logp=torch.stack(logp),
+        precip=torch.stack(precip),
+        sst=torch.as_tensor(np.stack(sst), dtype=dtype, device=dev),
+        tisr=torch.as_tensor(np.stack(tisr), dtype=dtype, device=dev),
+        hours=np.asarray(hours))
+
+
+def collect_forecasts(fc: SpeedyForecaster, truth: TruthSeries):
+    """Imperfect-model one-window forecasts from each truth state.
+
+    Returns (atmo, logp, precip) tensors aligned so index t is the forecast
+    VALID at truth sample t (launched from t-1); index 0 is a copy of truth
+    (never used: training pairs start at t=1). This is the analog of the
+    reference's precomputed "restart_6hour" SPEEDY states
+    (speedy_res_interface.f90:637-723).
+    """
+    T = truth.atmo.shape[0]
+    sst_host = truth.sst.double().cpu().numpy()
+    atmo, logp = [truth.atmo[0]], [truth.logp[0]]
+    precip = [torch.zeros_like(truth.precip[0])]
+    for t in range(T - 1):
+        y, m, d, h = datetime_from_hours(int(truth.hours[t]))
+        date = ModelDate(iyear=y, imonth=m, iday=d, ihour=h)
+        res = fc.forecast(atmo_to_grid(truth.atmo[t], truth.logp[t]), date,
+                          sst_hybrid=sst_host[t])
+        atmo.append(grid_to_atmo(res.gs))
+        logp.append(res.gs.logp)
+        precip.append(res.precip_mm)
+    return torch.stack(atmo), torch.stack(logp), torch.stack(precip)
 
 
 def transform_and_pack(layout: RegionLayout, atmo, logp, precip, sst, tisr,
@@ -234,18 +294,43 @@ def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
 # prediction
 # ----------------------------------------------------------------------
 class HybridRunner:
-    """The dry-window prediction loop (parallelmain.f90:206-273): per hybrid
-    timestep, the SPEEDY window from the current state, then the reservoir
-    step on [state; forecast]. SST and TISR come from the caller's sst_fn
-    and tisr_fn (speedyml HybridRunner.run contract), since the dry window
-    has no climatology."""
+    """The prediction loop (parallelmain.f90:206-273): per hybrid timestep,
+    the SPEEDY window from the current state, then the reservoir step on
+    [state; forecast]. SST defaults to the forecaster's climatology and TISR
+    to the analytic diurnal cycle; sst_fn and tisr_fn override them (a dry
+    forecaster built from a bare dycore has no climatology and needs
+    sst_fn)."""
 
-    def __init__(self, hm: HybridModel, fc: Optional[SpeedyForecaster]):
+    def __init__(self, hm: HybridModel, fc: Optional[SpeedyForecaster],
+                 clim=None, dy=None):
         if not hm.ml_only and fc is None:
             raise ValueError("a hybrid model needs a forecaster")
         self.hm = hm
         self.fc = fc
+        speedy = fc.speedy if fc is not None else None
+        self.clim = clim if clim is not None else (
+            speedy.clim if speedy is not None else None)
+        self.dy = dy if dy is not None else (
+            fc.dy if fc is not None else None)
         self.eps = hm.rcfg.precip_epsilon
+
+    def _sst(self, date: ModelDate) -> np.ndarray:
+        """Boundary SST for the date: the climatology with its sea-ice
+        blending."""
+        if self.clim is None:
+            raise ValueError("no climatology to take the SST from: pass "
+                             "sst_fn, or a forecaster built on a Speedy")
+        return np.asarray(init_coupler_state(self.clim, date).sst_am)
+
+    def _tisr(self, date: ModelDate) -> np.ndarray:
+        """Hourly-resolved TISR for the date (the reference's
+        get_tisr_by_date, mpires.f90:1676-1710: diurnal, matching the
+        train-time TISR statistics)."""
+        if self.dy is None:
+            raise ValueError("no dycore to take the latitudes from: pass "
+                             "tisr_fn")
+        return diurnal_tisr(date.tyear, date.ihour, self.dy.tables.gsin,
+                            self.dy.tables.gcos, self.hm.layout.ix)
 
     def pack(self, atmo, logp, precip_t, sst, tisr) -> torch.Tensor:
         """Global fields -> packed f32 supervector, with the SST/TISR unit
@@ -260,23 +345,27 @@ class HybridRunner:
                            None if precip_t is None else precip_t.to(f32),
                            ss, ti)
 
-    def forecast_gv(self, atmo, logp, sst, tisr):
-        """The window from (atmo, logp) packed as the model supervector, and
-        the window's safety flag (a 0-d bool tensor)."""
-        res = self.fc.forecast(atmo_to_grid(atmo, logp))
+    def forecast_gv(self, atmo, logp, sst, tisr, date=None):
+        """The window from (atmo, logp) at `date` under the boundary SST
+        `sst`, packed as the model supervector, and the window's safety flag
+        (a 0-d bool tensor)."""
+        res = self.fc.forecast(atmo_to_grid(atmo, logp), date,
+                               sst_hybrid=sst)
         f_atmo = torch.stack([res.gs.t, res.gs.u, res.gs.v,
                               torch.clamp(res.gs.q, min=QMIN)])
         f_pr = torch.log1p(torch.clamp(res.precip_mm, min=0.0) / self.eps)
         return self.pack(f_atmo, res.gs.logp, f_pr, sst, tisr), res.safe
 
     def run(self, x, atmo0, logp0, precip_t0, date: ModelDate, n_steps: int,
-            sst_fn: Callable, tisr_fn: Callable) -> dict:
+            sst_fn: Optional[Callable] = None,
+            tisr_fn: Optional[Callable] = None) -> dict:
         """Run n_steps hybrid steps from transformed global fields.
 
-        sst_fn(date), tisr_fn(date) -> (il, ix) boundary fields. Returns a
-        dict of stacked trajectory tensors (atmo, logp, precip_mm, sst), the
-        final reservoir state x and transformed precip precip_t (to resume
-        from), the date, and `aborted`: the loop stops
+        sst_fn(date) -> (il, ix) SST override; default climatology.
+        tisr_fn(date) -> (il, ix) TISR override; default diurnal analytic.
+        Returns a dict of stacked trajectory tensors (atmo, logp, precip_mm,
+        sst), the final reservoir state x and transformed precip precip_t
+        (to resume from), the date, and `aborted`: the loop stops
         early when the window's safety gate trips (ppo_iogrid.f90:563-577 ->
         mpires.f90:744), which costs one device sync per step.
         """
@@ -291,12 +380,13 @@ class HybridRunner:
         traj = {k: [] for k in ("atmo", "logp", "precip_mm", "sst")}
         aborted = False
         for _ in range(n_steps):
-            sst = torch.as_tensor(sst_fn(date), dtype=f32, device=dev)
-            tisr = torch.as_tensor(tisr_fn(date), dtype=f32, device=dev)
+            sst = sst_fn(date) if sst_fn is not None else self._sst(date)
+            tisr = tisr_fn(date) if tisr_fn is not None else self._tisr(date)
             gv = self.pack(atmo, logp, precip_t, sst, tisr)
             model_gv = None
             if not hm.ml_only:
-                model_gv, safe = self.forecast_gv(atmo, logp, sst, tisr)
+                model_gv, safe = self.forecast_gv(atmo, logp, sst, tisr,
+                                                  date)
                 if not bool(safe):
                     aborted = True
                     break
@@ -307,7 +397,7 @@ class HybridRunner:
             traj["precip_mm"].append(
                 None if precip_t is None
                 else self.eps * torch.expm1(torch.clamp(precip_t, min=0.0)))
-            traj["sst"].append(sst)
+            traj["sst"].append(torch.as_tensor(sst, dtype=f32, device=dev))
         out = {k: (torch.stack(v) if v and v[0] is not None else None)
                for k, v in traj.items()}
         out.update(x=x, precip_t=precip_t, date=date, aborted=aborted)

@@ -11,6 +11,7 @@ from speedyml.core import calendar as jcal
 from speedyml.core import config as jcfg
 from speedyml.core import constants as jconst
 from speedyml.core import vertical as jvert
+from speedyml.physics import constants as jphys
 from speedyml.reservoir import generate as jgen
 from speedyml.transforms import tables as jtab
 from speedyml_torch import convert
@@ -18,6 +19,7 @@ from speedyml_torch.core import calendar as tcal
 from speedyml_torch.core import config as tcfg
 from speedyml_torch.core import constants as tconst
 from speedyml_torch.core import vertical as tvert
+from speedyml_torch.physics import constants as tphys
 from speedyml_torch.reservoir import generate as tgen
 from speedyml_torch.transforms import tables as ttab
 
@@ -119,3 +121,48 @@ def test_radius_by_lat():
     np.testing.assert_array_equal(
         jgen.radius_by_lat(lo, hi, 30.0, 0.9, 0.3),
         tgen.radius_by_lat(lo, hi, 30.0, 0.9, 0.3))
+
+
+@pytest.mark.parametrize("when", [(1981, 1, 1, 0), (1984, 2, 29, 18),
+                                  (1979, 12, 31, 6), (2001, 7, 4, 12)])
+def test_hour_calendar(when):
+    """hours_since_epoch and its inverse, before and after the epoch and on
+    a leap day."""
+    h = jcal.hours_since_epoch(*when)
+    assert tcal.hours_since_epoch(*when) == h
+    assert tcal.datetime_from_hours(h) == jcal.datetime_from_hours(h) == when
+    assert tcal.is_leap(when[0]) == jcal.is_leap(when[0])
+    assert tcal.days_in_month(*when[:2]) == jcal.days_in_month(*when[:2])
+
+
+def test_physics_params():
+    _assert_same_fields(jphys.PP, tphys.PP)
+
+
+@pytest.mark.parametrize("kx", sorted(jvert._HSG_TABLES))
+def test_sigma_tables(kx):
+    hsg = jvert.make_vertical_grid(kx).hsg
+    _assert_same_fields(jphys.make_sigma_tables(hsg),
+                        tphys.make_sigma_tables(hsg))
+
+
+def test_fband():
+    np.testing.assert_array_equal(jphys.make_fband(), tphys.make_fband())
+
+
+def test_device_tables_hold_the_sigma_tables():
+    """The floats and tensors the tensor physics reads are the host tables'
+    values, and Python floats, not numpy scalars."""
+    import torch
+    st = tphys.make_sigma_tables(tvert.make_vertical_grid(8).hsg)
+    dt = tphys.DeviceTables(st, torch.float64, "cpu")
+    for name in ("sig", "sigl", "sigh", "dsig"):
+        got = getattr(dt, name)
+        assert all(type(v) is float for v in got), name
+        np.testing.assert_array_equal(np.array(got), getattr(st, name))
+    assert type(dt.wvi[3][1]) is float
+    np.testing.assert_array_equal(np.array(dt.wvi), st.wvi)
+    np.testing.assert_array_equal(dt.sig_col[:, 0, 0].numpy(), st.sig)
+    np.testing.assert_array_equal(dt.grdscp_col[:, 0, 0].numpy(), st.grdscp)
+    np.testing.assert_array_equal(dt.fband.numpy(), tphys.make_fband())
+    assert abs(sum(dt.entr) - tphys.PP.entmax) < 1e-15

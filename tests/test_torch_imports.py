@@ -20,6 +20,10 @@ SLICE_MODULES = [
     "domain.decomposition", "domain.standardize", "reservoir.esn",
     "reservoir.generate", "ops.accum", "reservoir.training",
     "hybrid.experiment", "convert",
+    "physics.constants", "physics.humidity", "physics.convection",
+    "physics.condensation", "physics.radiation", "physics.surface",
+    "physics.vdiff", "physics.driver", "io.boundary",
+    "io.synthetic_boundary", "coupler.climatology", "coupler.daily", "model",
 ]
 
 _PROBE = """
@@ -87,6 +91,19 @@ _ENTRY_POINTS = {
                      "generate_esn; generate_esn(0, 2, 4, 2, 2, m_target=8)"),
     "convert.tensor": ("from speedyml_torch import convert; "
                        "convert.tensor([1.0, 2.0])"),
+    "Speedy": ("import tempfile; from speedyml_torch import ModelConfig; "
+               "from speedyml_torch.model import Speedy; "
+               "from speedyml_torch.io.synthetic_boundary import "
+               "write_synthetic_boundary as w; "
+               "Speedy(ModelConfig(), w(tempfile.mkdtemp()))"),
+    "Physics": ("import numpy as np; "
+                "from speedyml_torch.physics.driver import Physics; "
+                "from speedyml_torch.physics.constants import "
+                "make_sigma_tables as m; z = np.zeros((4, 8)); "
+                "Physics(m(np.linspace(0, 1, 9)), np.ones(4), z, z, z)"),
+    "init_rad_carry": ("import torch; from speedyml_torch.physics.driver "
+                       "import init_rad_carry; "
+                       "init_rad_carry(8, 4, 8, torch.float32)"),
 }
 
 
@@ -128,6 +145,18 @@ def test_entry_points_default_to_the_card():
     assert all(getattr(p, f).is_cuda
                for f in ("a_idx", "a_val", "win", "wout", "node_map"))
     assert convert.tensor(np.ones(3)).is_cuda
+
+    import tempfile
+    from speedyml_torch import ModelConfig
+    from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
+    from speedyml_torch.model import Speedy
+    with tempfile.TemporaryDirectory() as tmp:
+        sp = Speedy(ModelConfig(), write_synthetic_boundary(tmp))
+    assert sp.device.type == "cuda" and sp.phys.fmask1.is_cuda
+    assert sp.phys.st.fband.is_cuda and sp.phys.st.sig_col.is_cuda
+    sp.initialize(1982, 1)
+    assert all(v.is_cuda for v in (*sp.surf, *sp.forcing, *sp.rad,
+                                   *sp.state))
 
 
 def test_resolve_device():

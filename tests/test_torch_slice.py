@@ -1,6 +1,7 @@
 """The port's main path against the JAX package's: two closed-loop dry
-hybrid steps at the full T30L8 grid (1152 regions) with a narrow reservoir
-(m_target = n_in, deg 4, as tests/test_fastloop.py:36-37).
+hybrid steps, and one full-physics hybrid step, at the full T30L8 grid (1152
+regions) with a narrow reservoir (m_target = n_in, deg 4, as
+tests/test_fastloop.py:36-37).
 
 The JAX side is the composition of bench.py:288-304 (window, pack,
 standardize, ESN step, scatter) on the dry window; the port side is
@@ -10,9 +11,14 @@ float32, from the same numpy-seeded weights, standardizer and state.
 Tolerances: grid fields to 2e-4 of each field's range and reservoir states
 to 1e-5. The windows agree to float64 rounding; what remains is float32
 rounding of the packed values (~3e-5 K on 300 K) carried through the
-standardized readout.
+standardized readout. The full-physics step starts from a spun-up model
+state on seeded stand-in boundary files and takes the runner's defaults
+(climatological SST, analytic diurnal TISR); it is one step, since a second
+would start its window from a float32-rounded state on each side, and the
+moist schemes' triggers amplify that (tests/test_fused_datagen.py:25-29).
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -21,18 +27,25 @@ import numpy as np
 import pytest
 import torch
 
+from speedyml.core.calendar import ModelDate as JaxDate
 from speedyml.core.config import ModelConfig, ReservoirConfig
+from speedyml.coupler.daily import init_coupler_state as jax_init_coupler
 from speedyml.domain import decomposition as jdec
 from speedyml.domain import standardize as jstd
 from speedyml.dynamics.core import Dycore as JaxDycore
 from speedyml.hybrid.forecast import SpeedyForecaster as JaxForecaster
 from speedyml.hybrid.state_io import GridState as JaxGridState
+from speedyml.model import Speedy as JaxSpeedy
+from speedyml.physics.radiation import diurnal_tisr as jax_diurnal_tisr
 from speedyml.reservoir import esn as jesn
 import speedyml_torch
 from speedyml_torch import convert
 from speedyml_torch.dynamics.core import Dycore
 from speedyml_torch.hybrid.experiment import HybridModel, HybridRunner
 from speedyml_torch.hybrid.forecast import SpeedyForecaster
+from speedyml_torch.hybrid.state_io import extract
+from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
+from speedyml_torch.model import Speedy
 from speedyml_torch.reservoir.generate import generate_esn
 
 # one intra-op thread: the suite runs in parallel workers beside the JAX
@@ -157,7 +170,7 @@ def test_two_dry_hybrid_steps(problem):
                      params=convert.esn_params(params, CPU),
                      stz=convert.standardizer(stz, CPU),
                      rcfg=convert.reservoir_config(ReservoirConfig()))
-    runner = HybridRunner(hm, SpeedyForecaster(td))
+    runner = HybridRunner(hm, SpeedyForecaster.dry(td))
     out = runner.run(to_cpu(x0), atmo, logp, pr0,
                      speedyml_torch.ModelDate(1982, 1, 15, 0), N_STEPS,
                      sst_fn=lambda d: sst, tisr_fn=lambda d: tisr)
@@ -175,3 +188,98 @@ def test_two_dry_hybrid_steps(problem):
         np.testing.assert_allclose(out["logp"][i].numpy(), lp_ref, rtol=0,
                                    atol=2e-4 * np.ptp(lp_ref))
     np.testing.assert_allclose(out["x"].numpy(), x_ref, rtol=0, atol=1e-5)
+
+
+def test_full_physics_hybrid_step(problem, tmp_path):
+    """One hybrid step whose window is the full-physics one: the port's
+    HybridRunner.run with its default SST and TISR against the JAX
+    composition (forecast with sst_hybrid, pack, standardize, ESN step,
+    scatter), from a spun-up state."""
+    _, L, params, _, _, _, _, _, _, x0 = problem
+    bindir = write_synthetic_boundary(str(tmp_path / "bc"), seed=2)
+    tm = Speedy(convert.model_config(ModelConfig(dtype="float64")), bindir,
+                device=CPU)
+    tm.initialize(1982, 1)
+    tm.run_days(1)
+    gs = extract(tm.dy, tm.state)
+    atmo = torch.stack([gs.t, gs.u, gs.v, torch.clamp(gs.q, min=QMIN)]) \
+        .to(torch.float32).numpy()
+    logp = gs.logp.to(torch.float32).numpy()
+    pr0 = np.zeros_like(logp)
+    when = (1982, 1, 2, 0)
+
+    # the JAX side: its own climatological SST and diurnal TISR, its own
+    # full-physics window
+    jm = JaxSpeedy(ModelConfig(dtype="float64"), bindir=bindir)
+    sst = np.asarray(jax_init_coupler(jm.clim, JaxDate(*when)).sst_am)
+    tisr = jax_diurnal_tisr(JaxDate(*when).tyear, 0, jm.dy.tables.gsin,
+                            jm.dy.tables.gcos, L.ix)
+    f32 = jnp.float32
+    gv0 = np.asarray(jdec.pack_global(L, *(jnp.asarray(a, f32) for a in (
+        atmo, logp, pr0, np.maximum(sst, 272.0), tisr))))
+    stz = jstd.Standardizer(
+        in_mean=jnp.asarray(gv0[L.input_index]),
+        in_std=jnp.asarray(np.full((L.R, L.n_in), 5.0, np.float32)),
+        out_mean=jnp.asarray(gv0[L.target_index]),
+        out_std=jnp.asarray(np.ones((L.R, L.n_out), np.float32)))
+    res = JaxForecaster(jm).forecast(
+        JaxGridState(t=atmo[0], u=atmo[1], v=atmo[2],
+                     q=np.maximum(atmo[3], 0.0), logp=logp),
+        JaxDate(*when), sst_hybrid=sst)
+    assert bool(res.safe)
+    assert float(res.precip_mm.max()) > 0.0
+    eps = ReservoirConfig().precip_epsilon
+    f_atmo = jnp.stack([res.gs.t, res.gs.u, res.gs.v,
+                        jnp.maximum(res.gs.q, QMIN)]).astype(f32)
+    f_pr = jnp.log1p(jnp.maximum(res.precip_mm, 0.0) / eps).astype(f32)
+    bnd = (jnp.maximum(jnp.asarray(sst, f32), 272.0), jnp.asarray(tisr, f32))
+    model_gv = jdec.pack_global(L, f_atmo, res.gs.logp.astype(f32), f_pr,
+                                *bnd)
+    gv = jdec.pack_global(L, jnp.asarray(atmo), jnp.asarray(logp),
+                          jnp.asarray(pr0), *bnd)
+    u = jstd.standardize_in(stz, gv[jnp.asarray(L.input_index)])
+    mv = jstd.standardize_out(stz, model_gv[jnp.asarray(L.target_index)])
+    x_ref, out_std = jesn.predict_step(params, jnp.asarray(x0), u, mv)
+    a_ref, lp_ref, pr_ref = (np.asarray(v) for v in jdec.scatter_outputs(
+        L, jstd.unstandardize_out(stz, out_std)))
+
+    hm = HybridModel(layout=convert.region_layout(L),
+                     params=convert.esn_params(params, CPU),
+                     stz=convert.standardizer(stz, CPU),
+                     rcfg=convert.reservoir_config(ReservoirConfig()))
+    runner = HybridRunner(hm, SpeedyForecaster(tm))
+    out = runner.run(to_cpu(x0), atmo, logp, pr0,
+                     speedyml_torch.ModelDate(*when), 1)
+    assert not out["aborted"]
+    # the defaults are the climatological SST and the diurnal TISR
+    np.testing.assert_allclose(out["sst"][0].numpy(), sst.astype(np.float32))
+    a = out["atmo"][0].numpy()
+    for v in range(3):
+        np.testing.assert_allclose(a[v], a_ref[v], rtol=0,
+                                   atol=2e-4 * np.ptp(a_ref[v]),
+                                   err_msg=f"var {v}")
+    np.testing.assert_allclose(a[3], np.maximum(a_ref[3], QMIN), rtol=0,
+                               atol=2e-4 * np.ptp(a_ref[3]))
+    np.testing.assert_allclose(out["logp"][0].numpy(), lp_ref, rtol=0,
+                               atol=2e-4 * np.ptp(lp_ref))
+    # the precipitation channel (log1p units, clamped to its support)
+    cap = np.log1p(ReservoirConfig().precip_cap_mm / eps)
+    np.testing.assert_allclose(out["precip_t"].numpy(),
+                               np.clip(pr_ref, 0.0, cap), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(out["x"].numpy(), np.asarray(x_ref), rtol=0,
+                               atol=1e-5)
+    # an ML-only runner has no forecaster and takes the climatology and the
+    # dycore's latitudes directly; its defaults are the same fields
+    ml = HybridRunner(dataclasses.replace(hm, ml_only=True), None,
+                      clim=tm.clim, dy=tm.dy)
+    np.testing.assert_array_equal(
+        ml._sst(speedyml_torch.ModelDate(*when)), sst)
+    np.testing.assert_array_equal(
+        ml._tisr(speedyml_torch.ModelDate(*when)), tisr)
+    with pytest.raises(ValueError):
+        SpeedyForecaster(None, physics=True, dy=tm.dy)
+    # without a climatology the runner says what it needs
+    bare = HybridRunner(hm, SpeedyForecaster.dry(tm.dy))
+    with pytest.raises(ValueError):
+        bare.run(to_cpu(x0), atmo, logp, pr0,
+                 speedyml_torch.ModelDate(*when), 1)

@@ -102,7 +102,7 @@ def test_dry_window(dycores):
     window = jax.jit(JaxForecaster(sp, physics=False)._window_fn())
     ref = window(jio.GridState(*map(jnp.asarray, gs)), None,
                  jd.zero_forcing())
-    fc = SpeedyForecaster(td)
+    fc = SpeedyForecaster.dry(td)
     assert fc.nsteps_window == 24
     out = fc.forecast(convert.grid_state(gs, CPU))
     assert bool(ref.safe) and bool(out.safe)
