@@ -18,10 +18,21 @@ readout 1152 x 136 x 5896), twice:
     full-physics `SpeedyForecaster` with the truth's SST, training of all
     regions, and closed-loop hybrid steps on the runner's own climatological
     SST and diurnal TISR. One window is timed first and the series sized
-    from it.
+    from it. The truth carries a seeded ENSO-like SST anomaly, so that the
+    ocean has something to learn;
+  * the coupled closed loop, on the same truth series: the slab-ocean
+    reservoirs of all 1152 horizontal regions trained through `train_ocean`
+    (n=4032; its normal equations go through the kernel too, at shapes the
+    kernel is first held against its plain version at), the anomaly gate
+    calibrated, the trained hybrid saved to a model file and loaded back
+    onto the card, two ocean weeks (56 steps) of the full-physics hybrid
+    through the chunked `ScanHybridRunner` with the ocean's weekly SST
+    feedback, a forecast file and a checkpoint, one chunk under
+    `torch.cuda.set_sync_debug_mode("error")`, and the per-step
+    `HybridRunner` resuming the chunked loop's checkpoint for a week.
 
-Before the two, the column physics on the card is held against the same
-code on the CPU (asked for explicitly) in float64.
+Before these, the column physics on the card is held against the same code
+on the CPU (asked for explicitly) in float64.
 
 Every phase raises on failure, so any fault ends the run with a nonzero exit.
 The line before the last is a JSON object with one entry per kernel wrapper
@@ -46,13 +57,36 @@ import time
 SEED = 20240101
 TRAIN_CHUNK = 128          # time steps per normal-equation fold
 TRAIN_SAMPLES = 2 * TRAIN_CHUNK   # training pairs after the discard
-PREDICT_STEPS = 6
+PREDICT_STEPS = 3
 N_SYNC = 40
+# the dry path's training pairs after the discard
+DRY_PAIRS = TRAIN_CHUNK
 # the full-physics path: days of spin-up from rest, the fewest and the most
-# training pairs, and the run time [s] the series is sized to stay under
+# training pairs, and the run time [s] the series is sized to stay under.
+# The fewest give 169 samples: six ocean weeks of 28, and train_ocean needs
+# more than four
 SPINUP_DAYS = 5
-FULL_PAIRS = (64, 128, 256)
+FULL_PAIRS = (128, 256)
 TARGET_SECONDS = 600.0
+# the coupled loop: steps of an ocean week, weeks through the chunked loop,
+# and the hybrid steps the coupled phases take in all (two weeks chunked, one
+# chunked again to the checkpoint, one per step from it), for the sizing
+WEEK = 28
+COUPLED_WEEKS = 2
+COUPLED_STEPS = (2 * COUPLED_WEEKS) * WEEK
+# series lengths the ocean's training can hand the kernel, held against the
+# plain version at a small R: below one 8-step product block, below and
+# just above one 32-step stage
+SHORT_SERIES = (1, 3, 7, 8, 9, 33)
+# the seeded SST anomaly of the truth [K, days]: large and fast enough to
+# lift the weekly SST variance of the tropical Pacific regions over the
+# ocean's activity threshold within a six-week series
+ENSO = dict(seed=7, amp=2.5, period_days=56.0, ramp_days=3.0)
+# chunked loop against the per-step loop over one week from one checkpoint,
+# in float32 windows whose moist triggers amplify rounding: the first step's
+# largest temperature difference [K] and the week's rms difference [K]
+COUPLED_STEP1_TOL = 0.5
+COUPLED_WEEK_RMS_TOL = 2.0
 # windows inside the series have run up to 1.5 times as long as the one
 # timed alone just before them (the host sets the pace, and it varies)
 WINDOW_MARGIN = 1.5
@@ -116,6 +150,7 @@ def phase_kernel(R, T, chunk, na, only_scan=False):
     g = torch.Generator(device=dev).manual_seed(SEED)
     aug = torch.randn(T, R, na, device=dev, generator=g)
     hi0 = 10.0 * torch.randn(R, na, na, device=dev, generator=g)
+    lo0 = 1e-6 * torch.randn(R, na, na, device=dev, generator=g)
     wrappers = (
         ("accumulate_ss_scan", aug,
          lambda hi, lo: accum.accumulate_ss_scan(hi, lo, aug, chunk)),
@@ -124,14 +159,14 @@ def phase_kernel(R, T, chunk, na, only_scan=False):
     )
     res = {}
     for name, a, kern in wrappers[:1] if only_scan else wrappers:
-        hi_k, lo_k = hi0.clone(), torch.zeros_like(hi0)
+        hi_k, lo_k = hi0.clone(), lo0.clone()
         kern(hi_k, lo_k)
         # the plain version a few regions at a time, which keeps its
         # (R, na, na) temporaries small beside the full block's accumulators
         err = 0.0
         for r0 in range(0, R, 8):
             sl = slice(r0, r0 + 8)
-            hi_p, lo_p = hi0[sl].clone(), torch.zeros_like(hi0[sl])
+            hi_p, lo_p = hi0[sl].clone(), lo0[sl].clone()
             accum.accumulate_ss_plain(hi_p, lo_p, a[:, sl], chunk)
             tot_k = hi_k[sl].double() + lo_k[sl].double()
             tot_p = hi_p.double() + lo_p.double()
@@ -201,7 +236,7 @@ def phase_kernel(R, T, chunk, na, only_scan=False):
             bound_bytes_ms=byte_ms, bound_operations_ms=op_ms,
             library_ms=l_ms, library_computes="product only")
         del hi_k, lo_k, at
-    del hi0, aug
+    del hi0, lo0, aug
     if only_scan:
         return res
 
@@ -228,6 +263,38 @@ def phase_kernel(R, T, chunk, na, only_scan=False):
                              f"{err_plain}")
     print(f"compensation: error {err_comp:.3e} vs plain f32 {err_plain:.3e}")
     return res
+
+
+def phase_kernel_short(na, R=8):
+    """accumulate_ss_scan against the plain version at the short series the
+    ocean's training can give it (SHORT_SERIES, chunk = min(16, T)) at the
+    ocean's width, from nonzero hi and lo. Returns the largest difference."""
+    import torch
+    from speedyml_torch.ops import accum
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    hi0 = 10.0 * torch.randn(R, na, na, device=dev, generator=g)
+    lo0 = 1e-6 * torch.randn(R, na, na, device=dev, generator=g)
+    worst = 0.0
+    for T in SHORT_SERIES:
+        aug = torch.randn(T, R, na, device=dev, generator=g)
+        hi_k, lo_k, hi_p, lo_p = (hi0.clone(), lo0.clone(), hi0.clone(),
+                                  lo0.clone())
+        accum.accumulate_ss_scan(hi_k, lo_k, aug, min(16, T))
+        accum.accumulate_ss_plain(hi_p, lo_p, aug, min(16, T))
+        tot_k = hi_k.double() + lo_k.double()
+        tot_p = hi_p.double() + lo_p.double()
+        err = float((tot_k - tot_p).abs().max())
+        scale = float(tot_p.abs().mean())
+        if not torch.allclose(tot_k, tot_p, rtol=1e-5, atol=1e-5 * scale):
+            raise AssertionError(f"accumulate_ss_scan != plain at T={T}, "
+                                 f"R={R}, na={na}: max abs err {err:.3e} "
+                                 f"(entry scale {scale:.3e})")
+        worst = max(worst, err)
+    print(f"accumulate_ss_scan vs plain, R={R} na={na}, T in "
+          f"{list(SHORT_SERIES)}: max |diff| {worst:.3e} (rtol 1e-5)")
+    return worst
 
 
 # ----------------------------------------------------------------------
@@ -363,7 +430,7 @@ def phase_main_path(region_block):
     L = build_layout(ix=dy.config.ix, il=dy.config.il, kx=dy.config.kx,
                      radang_deg=np.degrees(np.asarray(dy.tables.radang)))
     discard = max(1, rcfg.discardlength // rcfg.timestep)
-    n_samples = discard + 1 + TRAIN_SAMPLES
+    n_samples = discard + 1 + DRY_PAIRS
     date0 = ModelDate(1982, 1, 1, 0)
 
     t0 = time.perf_counter()
@@ -589,6 +656,7 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     import torch
     from speedyml_torch import ModelConfig, ModelDate, ReservoirConfig
     from speedyml_torch.core.calendar import datetime_from_hours
+    from speedyml_torch.coupler.anomaly import SyntheticEnso
     from speedyml_torch.domain.decomposition import build_layout
     from speedyml_torch.hybrid.experiment import (collect_forecasts,
                                                   collect_truth,
@@ -606,7 +674,13 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     cfg = sp.config
     L = build_layout(ix=cfg.ix, il=cfg.il, kx=cfg.kx,
                      radang_deg=np.degrees(np.asarray(sp.dy.tables.radang)))
-    runner = TrajectoryRunner(sp, hours=rcfg.timestep)
+    # the truth's SST carries a seeded anomaly from the series' first day on
+    enso = SyntheticEnso(np.degrees(np.asarray(sp.dy.tables.radang)),
+                         np.arange(cfg.ix) * 360.0 / cfg.ix,
+                         sp.clim.fmask_s, t0=(1982, 1, 1 + SPINUP_DAYS),
+                         **ENSO)
+    runner = TrajectoryRunner(sp, hours=rcfg.timestep,
+                              sst_anom_fn=enso.sst_anom_fn)
     fc = SpeedyForecaster(sp, hours=rcfg.timestep)
 
     t0 = time.perf_counter()
@@ -633,7 +707,10 @@ def phase_full_physics_path(bindir, region_block, t_run0):
           f"_surf_forcing {sf_ms:.1f} ms on the host")
     discard = max(1, rcfg.discardlength // rcfg.timestep)
     per_window = WINDOW_MARGIN * (statistics.median(win_ms) + sf_ms) / 1e3
-    left = TARGET_SECONDS - (time.perf_counter() - t_run0) - 60.0
+    # what the phases after the series take: the coupled loop's hybrid steps,
+    # the ocean's training, the model file, the closed-loop steps
+    reserve = COUPLED_STEPS * per_window + 120.0
+    left = TARGET_SECONDS - (time.perf_counter() - t_run0) - reserve
     pairs = FULL_PAIRS[0]
     for cand in FULL_PAIRS[1:]:
         if 2 * (discard + 1 + cand) * per_window < left:
@@ -716,9 +793,251 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     precip_t = torch.log1p(torch.clamp(truth.precip[-1], min=0.0) / eps)
     res = closed_loop("full physics", hm, fc, x0, truth.atmo[-1],
                       truth.logp[-1], precip_t, date, None, None)
+    del res["f32"]["final"], res["bf16"]["final"]
+    torch.cuda.empty_cache()
+    coupled = coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0,
+                           precip_t, date)
     return dict(window_ms=statistics.median(win_ms), surf_forcing_ms=sf_ms,
                 s_per_truth_sample=t_truth / n_samples, train_s=t_train,
-                pairs=pairs, step_ms={m: r["step_ms"] for m, r in res.items()})
+                pairs=pairs, step_ms={m: r["step_ms"] for m, r in res.items()},
+                coupled=coupled)
+
+
+# ----------------------------------------------------------------------
+# the coupled closed loop
+# ----------------------------------------------------------------------
+def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
+                 date):
+    """On the full-physics path's truth series and trained hybrid: the
+    kernel at the ocean's shapes, train_ocean over all regions, the gate,
+    the model file there and back, COUPLED_WEEKS ocean weeks through the
+    chunked loop with a writer and a checkpoint, one chunk with host syncs
+    forbidden, a week chunked again to a checkpoint, and the per-step runner
+    resuming that checkpoint. Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from speedyml_torch import (ScanHybridRunner, load_model, save_model,
+                                train_ocean)
+    from speedyml_torch.hybrid.experiment import HybridRunner
+    from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
+    from speedyml_torch.io.checkpoint import load_prediction
+    from speedyml_torch.io.output import ForecastWriter, read_forecast
+    from speedyml_torch.ops import accum
+    from speedyml_torch.reservoir.slab import (build_ocean_layout,
+                                               training_anomaly_std,
+                                               weekly_ocean_inputs)
+
+    L, rcfg = hm.layout, hm.rcfg
+    cfg = sp.config
+    out = {}
+    spw = rcfg.timestep_slab // rcfg.timestep
+    if spw != WEEK:
+        raise AssertionError(f"an ocean week is {spw} steps, not {WEEK}")
+    ol = build_ocean_layout(L)
+    n_o = round(rcfg.slab_nodes / ol.n_in) * ol.n_in
+    weeks = gv_truth.shape[0] // spw
+    discard = max(1, min(weeks // 4, 8))
+    T_o = weeks - discard - 1             # the pairs train_ocean folds
+    rb = region_block_for(n_o, torch.cuda.mem_get_info()[0], ol.R)
+
+    # the kernel at the shapes the ocean's training gives it, before the
+    # training; these launches are not the path's
+    launches = accum.accumulate_ss_scan.launches
+    at_ocean = phase_kernel(rb, T_o, min(16, T_o), n_o, only_scan=True)
+    out["at_ocean_shape"] = dict(T=T_o, R=rb, na=n_o,
+                                 **at_ocean["accumulate_ss_scan"])
+    out["short_series_max_abs_err"] = phase_kernel_short(n_o)
+    accum.accumulate_ss_scan.launches = launches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ocean = train_ocean(L, rcfg, gv_truth, seed=SEED, region_block=rb)
+    torch.cuda.synchronize()
+    out["ocean_train_s"] = time.perf_counter() - t0
+    out["launches_ocean_training"] = \
+        accum.accumulate_ss_scan.launches - launches
+    w = ocean.params.wout
+    if tuple(w.shape) != (ol.R, ol.n_out, n_o) or \
+            not bool(torch.isfinite(w).all()) or not w.is_cuda:
+        raise AssertionError(f"ocean wout {tuple(w.shape)} on {w.device} is "
+                             f"not a finite {(ol.R, ol.n_out, n_o)} on the "
+                             f"card")
+    n_active = int(ocean.active.sum())
+    if n_active < 1:
+        raise AssertionError("no ocean region passed the SST variance "
+                             "threshold")
+    train_std = training_anomaly_std(sp.clim, truth.hours, truth.sst)
+    gate, ol_rms, pers_rms = ocean.calibrate_gate(
+        gv_truth, L, discard=discard, train_anom_std=train_std)
+    if not np.isfinite(gate).all():
+        raise AssertionError("the anomaly gate is not finite")
+    out.update(ocean_regions=ol.R, ocean_active=n_active,
+               ocean_blocks=-(-ol.R // rb), ocean_region_block=rb,
+               ocean_weeks=weeks, ocean_pairs=T_o)
+    print(f"train_ocean: {ol.R} regions, n={n_o}, {weeks} weeks "
+          f"({T_o} pairs after {discard} discarded), "
+          f"{out['ocean_blocks']} blocks of {rb}: {out['ocean_train_s']:.1f}"
+          f" s, {out['launches_ocean_training']} kernel launches; "
+          f"{n_active} active regions; gate: training anomaly std <= "
+          f"{train_std.max():.2f} K, open-loop rms {ol_rms:.3f} K against "
+          f"persistence {pers_rms:.3f} K")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the trained hybrid to a file and back onto the card
+        path = os.path.join(tmp, "hybrid.nc")
+        t0 = time.perf_counter()
+        save_model(path, hm)
+        out["model_save_s"] = time.perf_counter() - t0
+        out["model_file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_model(path, radang_deg=np.degrees(
+            np.asarray(sp.dy.tables.radang)))
+        torch.cuda.synchronize()
+        out["model_load_s"] = time.perf_counter() - t0
+        os.remove(path)
+        if not loaded.params.wout.is_cuda:
+            raise AssertionError("load_model did not put the model on the "
+                                 "card")
+        for a, b in zip(hm.step(x0, gv_truth[-1], gv_model[-1]),
+                        loaded.step(x0, gv_truth[-1], gv_model[-1])):
+            if not torch.equal(a, b):
+                raise AssertionError("the loaded model's first step is not "
+                                     "the trained model's")
+        del loaded
+        torch.cuda.empty_cache()
+        print(f"model file: {out['model_file_bytes'] / 1e9:.3f} GB, saved "
+              f"in {out['model_save_s']:.1f} s, loaded onto the card in "
+              f"{out['model_load_s']:.1f} s; first step bitwise equal")
+
+        # COUPLED_WEEKS ocean weeks through the chunked loop
+        scan = ScanHybridRunner(hm, sp, physics=True)
+        x_ocean0 = ocean.synchronize(weekly_ocean_inputs(
+            gv_truth.cpu().numpy(), spw, L))
+        anom0 = enso.anomaly(date)
+        start = (x0, truth.atmo[-1], truth.logp[-1], precip_t0, date)
+        n_steps = COUPLED_WEEKS * spw
+        fpath = os.path.join(tmp, "forecast.nc")
+        ck_a = os.path.join(tmp, "a.npz")
+        t0 = time.perf_counter()
+        with ForecastWriter(fpath, cfg.kx, cfg.il, cfg.ix,
+                            with_sst=True) as writer:
+            run_a = scan.run(*start, n_steps, ocean=ocean, x_ocean=x_ocean0,
+                             sst_anom0=anom0, writer=writer, stream=True,
+                             checkpoint_path=ck_a, checkpoint_every=n_steps)
+        torch.cuda.synchronize()
+        out["coupled_run_s"] = time.perf_counter() - t0
+        if run_a["aborted"] or run_a["steps_done"] != n_steps:
+            raise AssertionError(f"the coupled run stopped after "
+                                 f"{run_a['steps_done']} of {n_steps} steps")
+        summ = run_a["summary"]
+        for name in ("t", "u", "q"):
+            lo, hi = SAFE_BOUNDS[name]
+            if not (lo <= summ[f"{name}_min"] and summ[f"{name}_max"] <= hi):
+                raise AssertionError(
+                    f"coupled {name} in {summ[f'{name}_min']:.1f}.."
+                    f"{summ[f'{name}_max']:.1f} leaves {lo}..{hi}")
+        if not all(np.isfinite(v) for v in summ.values()):
+            raise AssertionError(f"non-finite summary: {summ}")
+        if len(run_a["chunk_ms"]) != COUPLED_WEEKS:
+            raise AssertionError(f"chunk times: {run_a['chunk_ms']}")
+        out["chunk_step_ms"] = [ms / spw for ms in run_a["chunk_ms"]]
+        out["summary"] = summ
+        # the forecast file and the checkpoint, read back
+        fa = read_forecast(fpath)
+        temp = fa["Temperature"]
+        if temp.shape != (n_steps, cfg.kx, cfg.il, cfg.ix) or \
+                not np.isfinite(temp).all() or "SST" not in fa:
+            raise AssertionError(f"forecast file holds {temp.shape}")
+        np.testing.assert_array_equal(temp[-1],
+                                      run_a["atmo_end"][0].cpu().numpy())
+        st = load_prediction(ck_a)
+        if st["step"] != n_steps:
+            raise AssertionError(f"checkpoint step {st['step']}")
+        np.testing.assert_array_equal(st["x"], run_a["x"].cpu().numpy())
+        np.testing.assert_array_equal(st["extra"]["x_ocean"],
+                                      run_a["x_ocean"].cpu().numpy())
+        print(f"coupled run: {n_steps} steps in {out['coupled_run_s']:.1f} "
+              f"s, chunks of {spw} at "
+              + ", ".join(f"{ms:.1f}" for ms in out["chunk_step_ms"])
+              + f" ms/step by CUDA events; T {summ['t_min']:.1f}.."
+              f"{summ['t_max']:.1f} K, |u| <= "
+              f"{max(-summ['u_min'], summ['u_max']):.1f} m/s, q <= "
+              f"{summ['q_max']:.1f} g/kg, SST drift <= "
+              f"{summ['sst_drift_K']:.2f} K, rain <= "
+              f"{summ['precip_mm_max']:.1f} mm/6h; forecast file "
+              f"{os.path.getsize(fpath) / 1e6:.1f} MB and checkpoint read "
+              f"back")
+
+        # one chunk with host syncs forbidden: what a CUDA graph would need
+        xs = scan._upload_fields(scan._precompute(date, 2))
+        args = [torch.as_tensor(v, dtype=torch.float32, device=scan.device)
+                for v in start[:4]]
+        anom_dev = torch.as_tensor(anom0, dtype=scan.dtype,
+                                   device=scan.device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = scan.run_chunk(*args, anom_dev, xs, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not bool(res.safe_st.all()):
+            raise AssertionError("the sync-free chunk tripped the gate")
+        print("one chunk of 2 steps under set_sync_debug_mode('error'): no "
+              "host sync between its first launch and the read of safe")
+        del res, xs
+
+        # the first week again, to a checkpoint: the same launches give the
+        # same week
+        ck_b = os.path.join(tmp, "b.npz")
+        run_b = scan.run(*start, spw, ocean=ocean, x_ocean=x_ocean0,
+                         sst_anom0=anom0, checkpoint_path=ck_b,
+                         checkpoint_every=spw)
+        if run_b["aborted"]:
+            raise AssertionError("the one-week run tripped the gate")
+        again = float(np.abs(run_b["atmo"][:, 0] - temp[:spw]).max())
+        anom1 = run_b["sst_anom"]
+        clip = rcfg.slab_anom_clip
+        if not (0.0 < np.abs(anom1).max() <= clip + 1e-6):
+            raise AssertionError(f"fed-back anomaly after week one: max "
+                                 f"{np.abs(anom1).max():.3e} K (clip {clip})")
+        if again > COUPLED_STEP1_TOL:
+            raise AssertionError(f"the same week twice differs by {again}")
+        out.update(anom_week1_max_K=float(np.abs(anom1).max()),
+                   anom_week1_cells=int((np.abs(anom1) > 1e-6).sum()),
+                   same_week_twice_max_K=again)
+
+        # the per-step runner resumes the chunked loop's checkpoint for the
+        # second week, beside the chunked loop's own second week
+        per_step = HybridRunner(hm, fc)
+        t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1.record()
+        run_c = per_step.resume_from(ck_b, spw, ocean=ocean)
+        t2.record()
+        torch.cuda.synchronize()
+        out["per_step_ms"] = t1.elapsed_time(t2) / spw
+        if run_c["aborted"] or not run_c["x"].is_cuda:
+            raise AssertionError("the resumed run tripped the gate, or left "
+                                 "the card")
+        d = run_c["atmo"][:, 0].cpu().numpy() - temp[spw:]
+        step1, rms = float(np.abs(d[0]).max()), float(np.sqrt((d**2).mean()))
+        out.update(resume_step1_max_K=step1, resume_week_rms_K=rms,
+                   resume_week_max_K=float(np.abs(d).max()))
+        if step1 > COUPLED_STEP1_TOL or rms > COUPLED_WEEK_RMS_TOL:
+            raise AssertionError(
+                f"resumed per-step week against the chunked loop's second "
+                f"week: first step {step1:.3e} K (bound {COUPLED_STEP1_TOL}"
+                f"), week rms {rms:.3e} K (bound {COUPLED_WEEK_RMS_TOL})")
+        print(f"after week one the fed-back anomaly reaches "
+              f"{out['anom_week1_max_K']:.3f} K in "
+              f"{out['anom_week1_cells']} cells (clip {clip} K); the same "
+              f"week twice: max |dT| {again:.3e} K; per-step runner resumed "
+              f"from the chunked loop's checkpoint: {out['per_step_ms']:.1f} "
+              f"ms/step beside {out['chunk_step_ms'][-1]:.1f} chunked; "
+              f"against the chunked second week: first step max |dT| "
+              f"{step1:.3e} K (bound {COUPLED_STEP1_TOL}), week rms "
+              f"{rms:.3e} K (bound {COUPLED_WEEK_RMS_TOL}), max "
+              f"{out['resume_week_max_K']:.2f} K")
+    return out
 
 
 def inject_state(sp, gs):
@@ -782,14 +1101,17 @@ def main():
         full, n_full, n_full_single = counted(
             "full-physics path", phase_full_physics_path, bindir,
             region_block, t_run0)
-    # the full-physics training gave the kernel another series length: hold
-    # it against the plain version at that shape too
-    at_full = None
-    if full["pairs"] != TRAIN_SAMPLES:
-        at_full = timed("kernel at the full-physics shape", phase_kernel,
-                        region_block, full["pairs"],
-                        min(TRAIN_CHUNK, full["pairs"]), na, True)
-        at_full = dict(T=full["pairs"], **at_full["accumulate_ss_scan"])
+    # the dry training, and as a rule the full-physics one, give the kernel
+    # another series length than the one timed above: hold it against the
+    # plain version at that shape too
+    at_dry = timed("kernel at the dry path's shape", phase_kernel,
+                   region_block, DRY_PAIRS, min(TRAIN_CHUNK, DRY_PAIRS), na,
+                   True)
+    at_dry = dict(T=DRY_PAIRS, **at_dry["accumulate_ss_scan"])
+    at_full = at_dry if full["pairs"] == DRY_PAIRS else None
+    coupled = full["coupled"]
+    n_ocean = coupled["launches_ocean_training"]
+    n_full -= n_ocean
 
     def entry(wrapper, replaces, n, **more):
         return dict(name=wrapper, route="cuda",
@@ -803,9 +1125,12 @@ def main():
     # does not call it, so it is checked and timed above but listed apart
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
-                          n_dry + n_full, launches_dry_path=n_dry,
+                          n_dry + n_full + n_ocean, launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
-                          at_full_physics_shape=at_full)],
+                          launches_ocean_training=n_ocean,
+                          at_dry_shape=at_dry,
+                          at_full_physics_shape=at_full,
+                          at_ocean_shape=coupled.pop("at_ocean_shape"))],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
                            n_dry_single + n_full_single)],
         "full_physics": full}))

@@ -24,6 +24,7 @@ from .dynamics.state import SpectralState
 from .hybrid.state_io import GridState
 from .physics.driver import RadCarry, SurfaceDailyState
 from .reservoir.esn import EsnParams
+from .reservoir.slab import OceanLayout, OceanModel
 
 
 def tensor(a, device=None, dtype: torch.dtype | None = None):
@@ -119,3 +120,19 @@ def coupler_state(cs) -> CouplerState:
 def climatology(clim) -> Climatology:
     """speedyml Climatology -> the port's Climatology (host numpy)."""
     return _host_dataclass(Climatology, clim)
+
+
+def ocean_layout(ol) -> OceanLayout:
+    """speedyml OceanLayout -> the port's (host arrays are shared)."""
+    return OceanLayout(*(getattr(ol, f) for f in OceanLayout._fields))
+
+
+def ocean_model(om, device=None) -> OceanModel:
+    """speedyml OceanModel -> the port's OceanModel, by fields: the
+    reservoirs and the standardizer as tensors on `device`, the layout, the
+    active mask and the gate as host numpy."""
+    return OceanModel(
+        ol=ocean_layout(om.ol), params=esn_params(om.params, device),
+        stz=standardizer(om.stz, device), active=np.array(om.active),
+        rcfg=reservoir_config(om.rcfg),
+        anom_std=None if om.anom_std is None else np.array(om.anom_std))

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -11,3 +12,9 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     has: without a card, a call without `device` fails with torch's own
     error at the first allocation."""
     return torch.device("cuda" if device is None else device)
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor (on any device) or an array as host numpy. On a tensor of
+    the card this waits for the work that produces it."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)

@@ -1,6 +1,7 @@
 """Hybrid training and prediction (PyTorch port of speedyml/hybrid/
-experiment.py: data collection, training and the prediction loop; the slab
-ocean, the writers and the checkpoints are not ported).
+experiment.py: data collection, training and the per-step prediction loop
+with its slab-ocean coupling, writers and checkpoints; hybrid/fastloop.py
+holds the chunked loop for long runs).
 
 The global state lives in ONE packed supervector on the device; reservoir
 input packing is a gather, output scattering a reshape, and the SPEEDY
@@ -27,17 +28,22 @@ from ..core.calendar import (ModelDate, datetime_from_hours,
                              hours_since_epoch)
 from ..core.config import ReservoirConfig
 from ..coupler.daily import init_coupler_state
+from ..device import resolve_device, to_host
 from ..domain.decomposition import (RegionLayout, gather_inputs,
                                     gather_targets, pack_global,
                                     scatter_outputs)
 from ..domain.standardize import (Standardizer, compute_stats_gv,
                                   standardize_in, standardize_out,
                                   unstandardize_out)
-from ..reservoir.esn import EsnParams, predict_step, synchronize
-from ..reservoir.generate import generate_esn, radius_by_lat
-from ..reservoir.training import (drive_and_accumulate, drive_discard,
-                                  init_normal_eq, ridge_solve)
+from ..io.checkpoint import load_prediction, save_prediction
 from ..physics.radiation import diurnal_tisr
+from ..reservoir.esn import (EsnParams, advance, predict_step, readout_split,
+                             synchronize)
+from ..reservoir.generate import generate_esn, radius_by_lat
+from ..reservoir.slab import compose_week_inputs
+from ..reservoir.training import (block_generator, drive_and_accumulate,
+                                  drive_discard, init_normal_eq,
+                                  ridge_solve)
 from .forecast import SpeedyForecaster, TrajectoryRunner
 from .state_io import GridState
 
@@ -169,12 +175,43 @@ class HybridModel:
         x, out_std = predict_step(self.params, x, u, model_vec)
         out = unstandardize_out(self.stz, out_std)
         atmo, logp, precip_t = scatter_outputs(L, out)
-        # physical sanity clamps (mpires.f90:456-462)
+        atmo, precip_t = self._clamp(atmo, precip_t)
+        return x, atmo, logp, precip_t
+
+    def _clamp(self, atmo, precip_t):
+        """Physical sanity clamps (mpires.f90:456-462): the q floor and the
+        training support of the log-precip channel."""
         atmo = torch.cat([atmo[:3], torch.clamp(atmo[3:], min=QMIN)])
         if precip_t is not None:
             precip_t = clamp_precip_t(precip_t, self.rcfg.precip_epsilon,
                                       self.rcfg.precip_cap_mm)
-        return x, atmo, logp, precip_t
+        return atmo, precip_t
+
+    def step_split(self, x, gv, model_gv):
+        """step() plus the v_ml/v_p component grids (mod_reservoir.f90:
+        1458-1469; shipped to disk by the reference via mpires.f90:
+        1146-1547). The components are in physical units and satisfy
+        atmo = atmo_ml + atmo_p before the clamps: the ML increment is
+        std * v_ml, the SPEEDY part std * v_p + mean. Returns
+        (x, atmo, logp, precip_t, comp) with comp a dict of atmo_ml,
+        logp_ml, atmo_p, logp_p."""
+        if self.ml_only:
+            raise ValueError("the component split needs the model block")
+        L = self.layout
+        stz = self.stz
+        u = standardize_in(stz, gather_inputs(L, gv))
+        model_vec = standardize_out(stz, gather_targets(L, model_gv))
+        x = advance(self.params, x, u)
+        out_std, v_ml, v_p = readout_split(self.params, x, model_vec)
+        atmo, logp, precip_t = scatter_outputs(
+            L, unstandardize_out(stz, out_std))
+        atmo, precip_t = self._clamp(atmo, precip_t)
+        atmo_ml, logp_ml, _ = scatter_outputs(L, v_ml * stz.out_std)
+        atmo_p, logp_p, _ = scatter_outputs(
+            L, v_p * stz.out_std + stz.out_mean)
+        comp = dict(atmo_ml=atmo_ml, logp_ml=logp_ml, atmo_p=atmo_p,
+                    logp_p=logp_p)
+        return x, atmo, logp, precip_t, comp
 
     def synchronize(self, gv_series, x=None):
         """Drive the reservoirs with true data (mod_reservoir.f90:1354-1416)."""
@@ -188,12 +225,6 @@ class HybridModel:
 # ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
-def _block_generator(device, seed: int, bi: int, k: int) -> torch.Generator:
-    """Noise stream k of region block bi: a pure function of (seed, bi, k)."""
-    return torch.Generator(device=device).manual_seed(
-        (seed * 1_000_003 + bi) * 2 + k)
-
-
 def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
                  gv_truth: torch.Tensor, gv_model: Optional[torch.Tensor],
                  seed: int = 0, region_block: int = 0, chunk: int = 64,
@@ -253,14 +284,14 @@ def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
         x = torch.zeros((Rb, params.n), dtype=torch.float32, device=dev)
         x = drive_discard(params, x, u_blk[:discard],
                           noise_mag=rcfg.noise_std,
-                          generator=_block_generator(dev, seed, bi, 0))
+                          generator=block_generator(dev, seed, bi, 0))
         acc = init_normal_eq(params, layout.n_out)._replace(x=x)
         # pairs: state after u(t) vs target(t+1), t = discard..T-2
         acc = drive_and_accumulate(
             params, acc, u_blk[discard:-1], y_blk[discard + 1:],
             None if ml_only else m_blk[discard + 1:],
             noise_mag=rcfg.noise_std,
-            generator=_block_generator(dev, seed, bi, 1), chunk=chunk)
+            generator=block_generator(dev, seed, bi, 1), chunk=chunk)
         wout = ridge_solve(acc, n_model, rcfg.beta_res, rcfg.beta_model,
                            prior_val=rcfg.prior_val,
                            use_prior=rcfg.prior_val != 0.0)
@@ -313,6 +344,11 @@ class HybridRunner:
         self.dy = dy if dy is not None else (
             fc.dy if fc is not None else None)
         self.eps = hm.rcfg.precip_epsilon
+        # optional (il, ix) output-side lognormal debias for the precip
+        # channel: sigma^2/2 of the readout's log1p residual, subtracted
+        # before the inversion, so that the WRITTEN mm estimates E[P] and is
+        # not exp-inflated; what is fed back is untouched
+        self.precip_debias = None
 
     def _sst(self, date: ModelDate) -> np.ndarray:
         """Boundary SST for the date: the climatology with its sea-ice
@@ -356,20 +392,59 @@ class HybridRunner:
         f_pr = torch.log1p(torch.clamp(res.precip_mm, min=0.0) / self.eps)
         return self.pack(f_atmo, res.gs.logp, f_pr, sst, tisr), res.safe
 
+    def precip_mm(self, precip_t):
+        """The written precipitation [mm] of a transformed log-precip field:
+        the output-side debias, then the inverse transform."""
+        if self.precip_debias is not None:
+            precip_t = torch.clamp(precip_t - torch.as_tensor(
+                self.precip_debias, dtype=precip_t.dtype,
+                device=precip_t.device), min=0.0)
+        return self.eps * torch.expm1(torch.clamp(precip_t, min=0.0))
+
     def run(self, x, atmo0, logp0, precip_t0, date: ModelDate, n_steps: int,
             sst_fn: Optional[Callable] = None,
-            tisr_fn: Optional[Callable] = None) -> dict:
+            tisr_fn: Optional[Callable] = None, ocean=None, x_ocean=None,
+            sst_anom0=None, writer=None, component_writers=None,
+            checkpoint_path=None, checkpoint_every: int = 0,
+            verbose: int = 0, deadline=None, gv_sum0=None,
+            n_accum0: int = 0) -> dict:
         """Run n_steps hybrid steps from transformed global fields.
 
-        sst_fn(date) -> (il, ix) SST override; default climatology.
+        sst_fn(date) -> (il, ix) SST override; default climatology. Mutually
+        exclusive with `ocean` (an interactive ocean's anomaly is defined
+        against the climatology; adding it on top of an observed field would
+        count observed anomalies twice).
+        sst_anom0: (il, ix) initial SST ANOMALY against climatology (not an
+        absolute field), applied until the first weekly ocean update.
         tisr_fn(date) -> (il, ix) TISR override; default diurnal analytic.
-        Returns a dict of stacked trajectory tensors (atmo, logp, precip_mm,
-        sst), the final reservoir state x and transformed precip precip_t
-        (to resume from), the date, and `aborted`: the loop stops
-        early when the window's safety gate trips (ppo_iogrid.f90:563-577 ->
-        mpires.f90:744), which costs one device sync per step.
+        ocean: trained reservoir.slab.OceanModel. It steps every
+        timestep_slab hours on the rolling week-mean supervector and feeds
+        its predicted SST back to both the atmosphere reservoirs and
+        SPEEDY's boundary condition (mod_slab_ocean_reservoir.f90:1268-1316,
+        cpl_sea.f90:38-44); x_ocean is its reservoir state, gv_sum0 and
+        n_accum0 the week's running sum and count to resume from.
+        writer: io.output.ForecastWriter, appended to every step (the
+        reference root's per-step write, mpires.f90:518-563).
+        component_writers: (writer_ml, writer_p) pair of ForecastWriters for
+        the per-step v_ml/v_p contributions in physical units
+        (atmo = atmo_ml + atmo_p; mpires.f90:1146-1547).
+        checkpoint_path, checkpoint_every: an atomic full-state checkpoint
+        (io.checkpoint) every so many steps; resume_from() continues from it.
+        verbose: print every so many steps. deadline: a time.time() value
+        after which the loop stops cleanly at the end of a step.
+        Returns a dict of stacked trajectory tensors on the device (atmo,
+        logp, precip_mm, sst), the final reservoir state x and transformed
+        precip precip_t (to resume from), x_ocean, the date, and `aborted`:
+        the loop stops early when the window's safety gate trips
+        (ppo_iogrid.f90:563-577 -> mpires.f90:744), which costs one device
+        sync per step; a writer costs one download per step.
         """
         hm = self.hm
+        L = hm.layout
+        if sst_fn is not None and ocean is not None:
+            raise ValueError(
+                "sst_fn (observed SST) and an interactive ocean are mutually "
+                "exclusive: the ocean anomaly is defined against climatology")
         dev = x.device
         f32 = torch.float32
         atmo = torch.as_tensor(atmo0, dtype=f32, device=dev)
@@ -379,10 +454,38 @@ class HybridRunner:
         date = ModelDate(date.iyear, date.imonth, date.iday, date.ihour)
         traj = {k: [] for k in ("atmo", "logp", "precip_mm", "sst")}
         aborted = False
-        for _ in range(n_steps):
+        gv_sum = None if gv_sum0 is None else \
+            torch.as_tensor(gv_sum0, dtype=f32, device=dev)
+        n_accum = int(n_accum0)
+        # the ocean feedback persists as an ANOMALY against climatology
+        # between weekly updates (applied again on the advancing
+        # climatology), not as a week-frozen absolute field: the seasonal
+        # cycle the reservoirs were trained on keeps moving underneath
+        sst_anom = None if sst_anom0 is None else \
+            np.asarray(to_host(sst_anom0), np.float64)
+        spw = 0 if ocean is None else ocean.steps_per_week
+        for step_i in range(n_steps):
             sst = sst_fn(date) if sst_fn is not None else self._sst(date)
             tisr = tisr_fn(date) if tisr_fn is not None else self._tisr(date)
+            if sst_anom is not None:
+                sst = np.clip(to_host(sst) + sst_anom, 200.0, 306.0)
             gv = self.pack(atmo, logp, precip_t, sst, tisr)
+
+            if ocean is not None:
+                gv_sum = gv if gv_sum is None else gv_sum + gv
+                n_accum += 1
+                if n_accum == spw:
+                    if x_ocean is None:
+                        x_ocean = ocean.zero_state()
+                    # week-mean ATMO blocks + instantaneous SST/TISR/OHTC
+                    # (mpires.f90:776-791; see slab.weekly_ocean_inputs)
+                    gv_week = compose_week_inputs(gv, gv_sum, spw, L)
+                    x_ocean, sst_core = ocean.step(x_ocean, gv_week)
+                    clim_sst = to_host(self._sst(date))
+                    sst_anom = ocean.compose_sst(sst_core, clim_sst,
+                                                 L) - clim_sst
+                    gv_sum, n_accum = None, 0
+
             model_gv = None
             if not hm.ml_only:
                 model_gv, safe = self.forecast_gv(atmo, logp, sst, tisr,
@@ -390,15 +493,73 @@ class HybridRunner:
                 if not bool(safe):
                     aborted = True
                     break
-            x, atmo, logp, precip_t = hm.step(x, gv, model_gv)
+            if component_writers is not None and not hm.ml_only:
+                x, atmo, logp, precip_t, comp = hm.step_split(x, gv,
+                                                              model_gv)
+                w_ml, w_p = component_writers
+                w_ml.append(to_host(comp["atmo_ml"]),
+                            to_host(comp["logp_ml"]))
+                w_p.append(to_host(comp["atmo_p"]),
+                           to_host(comp["logp_p"]))
+            else:
+                x, atmo, logp, precip_t = hm.step(x, gv, model_gv)
             date.advance_hours(hm.rcfg.timestep)
             traj["atmo"].append(atmo)
             traj["logp"].append(logp)
             traj["precip_mm"].append(
-                None if precip_t is None
-                else self.eps * torch.expm1(torch.clamp(precip_t, min=0.0)))
+                None if precip_t is None else self.precip_mm(precip_t))
             traj["sst"].append(torch.as_tensor(sst, dtype=f32, device=dev))
+            if writer is not None:
+                pr_mm = traj["precip_mm"][-1]
+                writer.append(to_host(atmo), to_host(logp),
+                              precip_mm=None if pr_mm is None
+                              else to_host(pr_mm), sst=to_host(sst))
+            if checkpoint_path and checkpoint_every and \
+                    (step_i + 1) % checkpoint_every == 0:
+                extra = {}
+                if sst_anom is not None:
+                    extra["sst_anom"] = sst_anom
+                if ocean is not None:
+                    # the week's accumulator and the ocean reservoir state:
+                    # without them a mid-week resume would restart the
+                    # week-mean window out of phase, on a cold ocean state
+                    extra["n_accum"] = n_accum
+                    if gv_sum is not None:
+                        extra["gv_sum"] = gv_sum
+                    if x_ocean is not None:
+                        extra["x_ocean"] = x_ocean
+                save_prediction(checkpoint_path, x, atmo, logp, precip_t,
+                                date, step=step_i + 1, extra=extra or None)
+            if verbose and (step_i + 1) % verbose == 0:
+                print(f"  predict step {step_i + 1}/{n_steps} "
+                      f"[{time.strftime('%H:%M:%S')}]", flush=True)
+            if deadline is not None and time.time() > deadline:
+                break                       # a budgeted run stops cleanly
         out = {k: (torch.stack(v) if v and v[0] is not None else None)
                for k, v in traj.items()}
-        out.update(x=x, precip_t=precip_t, date=date, aborted=aborted)
+        out.update(x=x, x_ocean=x_ocean, precip_t=precip_t, date=date,
+                   aborted=aborted)
         return out
+
+    def resume_from(self, checkpoint_path: str, n_steps: int,
+                    device: torch.device | str | None = None, **kw) -> dict:
+        """Continue a prediction exactly from a checkpoint that run() or the
+        chunked loop wrote, on `device` (the card unless the caller names
+        another). Keyword arguments go on to run()."""
+        dev = resolve_device(device)
+        st = load_prediction(checkpoint_path)
+        ex = st["extra"]
+        if "sst_cur" in ex:
+            # an old checkpoint holds the ABSOLUTE fed-back SST: turn it into
+            # the anomaly against the climatology at the checkpoint's date
+            ex["sst_anom"] = np.asarray(ex.pop("sst_cur"), np.float64) \
+                - to_host(self._sst(st["date"]))
+        if "x_ocean" in ex and kw.get("ocean") is not None \
+                and kw.get("x_ocean") is None:
+            kw["x_ocean"] = torch.as_tensor(ex["x_ocean"], device=dev)
+        return self.run(torch.as_tensor(st["x"], device=dev), st["atmo"],
+                        st["logp"], st["precip_t"], st["date"], n_steps,
+                        sst_anom0=kw.pop("sst_anom0", ex.get("sst_anom")),
+                        gv_sum0=kw.pop("gv_sum0", ex.get("gv_sum")),
+                        n_accum0=kw.pop("n_accum0",
+                                        int(ex.get("n_accum", 0))), **kw)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.calendar import ModelDate
+from ..coupler.anomaly import apply_sst_anomaly
 from ..coupler.daily import daily_coupler_update, init_coupler_state
 from ..dynamics.core import Dycore
 from ..model import Speedy, ice_flux
@@ -127,9 +128,11 @@ class SpeedyForecaster:
 
         sst_hybrid, (il, ix) numpy or tensor, overrides the climatological
         SST boundary condition (the reference's ini_sea hybrid hook,
-        cpl_sea.f90:38-44). The dry core takes neither.
+        cpl_sea.f90:38-44). The dry core of a Speedy takes the date's
+        diffusion corrections (tcorh, qcorh) as the full model does; without
+        a date, or built from a bare dycore, it runs on zero forcing.
         """
-        if not self.physics:
+        if not self.physics and (self.speedy is None or date is None):
             return self.window(gs, None, self.dy.zero_forcing())
         if date is None:
             raise ValueError("a full-physics window needs its date")
@@ -152,13 +155,20 @@ class TrajectoryRunner:
     continuously: the grid state and ONE persistent coupler state are
     carried across windows (unlike SpeedyForecaster.forecast, which
     re-initializes the coupler per window exactly as the reference
-    re-launches SPEEDY)."""
+    re-launches SPEEDY).
+
+    sst_anom_fn(date) -> (il, ix) SST anomaly [K] (coupler.anomaly) is
+    imposed on the coupler's atmosphere-facing SST after every daily update:
+    the truth then feels the anomaly through the surface fluxes and qcorh,
+    and the recorded SST samples carry it into training. Without it the
+    truth's SST is exactly climatology."""
 
     def __init__(self, speedy: Speedy, hours: int = 6,
-                 truth_physics: bool = True):
+                 truth_physics: bool = True, sst_anom_fn=None):
         self.speedy = speedy
         self.fc = SpeedyForecaster(speedy, hours=hours, physics=truth_physics)
         self.hours = hours
+        self.sst_anom_fn = sst_anom_fn
         self.date: Optional[ModelDate] = None
         self.gs: Optional[GridState] = None
         self.cs = None
@@ -209,6 +219,8 @@ class TrajectoryRunner:
         if self._hour >= 24:
             daily_coupler_update(sp.clim, self.cs, self.date,
                                  *self._day_flux.cpu().numpy())
+            if self.sst_anom_fn is not None:
+                apply_sst_anomaly(self.cs, self.sst_anom_fn(self.date))
             self._hour = 0
             self._day_flux = None
         return self.current_sample(precip_mm=res.precip_mm)

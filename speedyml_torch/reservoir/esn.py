@@ -115,19 +115,36 @@ def readout(params: EsnParams, x, model_vec=None):
         aug = torch.cat([model_vec.to(xt.dtype), xt], dim=-1)
     else:
         aug = xt
-    w = params.wout
+    return _wout_matvec(params.wout, aug)
+
+
+def _wout_matvec(w, v):
+    """w (R, n_out, k) @ v (R, k) -> (R, n_out). A bf16 w takes v rounded to
+    bf16 and sums in f32 (see readout)."""
     if w.dtype == torch.bfloat16:
-        a16 = aug.to(torch.bfloat16)[..., None]
+        v16 = v.to(torch.bfloat16)[..., None]
         if w.is_cuda:
             # cuBLAS reads the bf16 weights as they are and writes f32
-            out = torch.bmm(w, a16, out_dtype=torch.float32)
-        else:
-            # the CPU has no bf16 x bf16 -> f32 bmm; the f32 products of bf16
-            # values are exact, so this is the same sum
-            out = torch.bmm(w.float(), a16.float())
-        return out[..., 0]
-    dt = torch.promote_types(w.dtype, aug.dtype)
-    return torch.bmm(w.to(dt), aug.to(dt)[..., None])[..., 0]
+            return torch.bmm(w, v16, out_dtype=torch.float32)[..., 0]
+        # the CPU has no bf16 x bf16 -> f32 bmm; the f32 products of bf16
+        # values are exact, so this is the same sum
+        return torch.bmm(w.float(), v16.float())[..., 0]
+    dt = torch.promote_types(w.dtype, v.dtype)
+    return torch.bmm(w.to(dt), v.to(dt)[..., None])[..., 0]
+
+
+def readout_split(params: EsnParams, x, model_vec):
+    """Readout decomposed into the SPEEDY (v_p) and reservoir (v_ml)
+    contributions (mod_reservoir.f90:1458-1469), in standardized space.
+
+    Returns (outvec, v_ml, v_p) with outvec = v_p + v_ml. The two partial
+    products sum in another order than readout's single one, so outvec
+    agrees with readout to rounding, not bitwise.
+    """
+    n_model = params.n_model
+    v_ml = _wout_matvec(params.wout[..., n_model:], nonlinear_state(x))
+    v_p = _wout_matvec(params.wout[..., :n_model], model_vec.to(x.dtype))
+    return v_p + v_ml, v_ml, v_p
 
 
 def cast_wout(params: EsnParams, dtype=torch.bfloat16) -> EsnParams:

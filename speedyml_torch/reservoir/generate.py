@@ -66,6 +66,26 @@ def make_ring_adjacency(rng: np.random.Generator, R: int, n: int, deg: int):
     return idx, val, shifts
 
 
+def shifts_from_ell(a_idx: np.ndarray):
+    """Detect circulant structure in an ELL index array: returns the (deg,)
+    shifts if a_idx[r, i, d] == (i + s_d) % n for all r, i (with s_d shared
+    across regions), else None. Used on weight load so that a saved model
+    recovers the shifted-slice path without any change to the file."""
+    a_idx = np.asarray(a_idx)
+    R, n, deg = a_idx.shape
+    if n == 0:
+        return None
+    # only well-formed in-range indices qualify: the generic gather treats
+    # an out-of-range index otherwise than a wraparound would
+    if a_idx.min() < 0 or a_idx.max() >= n:
+        return None
+    s = a_idx[0, 0, :].astype(np.int64)
+    want = (np.arange(n, dtype=np.int64)[None, :, None] + s[None, None, :]) % n
+    if np.array_equal(a_idx, np.broadcast_to(want, a_idx.shape)):
+        return s.astype(np.int32)
+    return None
+
+
 def radius_by_lat(lat_min_deg: np.ndarray, lat_max_deg: np.ndarray,
                   highest_lat: float = 45.0, max_radius: float = 0.7,
                   min_radius: float = 0.3) -> np.ndarray:

@@ -44,6 +44,14 @@ def init_normal_eq(params: EsnParams, n_out: int,
                     x=z(R, params.n))
 
 
+def block_generator(device, seed: int, bi: int, k: int) -> torch.Generator:
+    """Noise stream k of region block bi: a pure function of (seed, bi, k),
+    so a training run that skips blocks it finds finished changes no other
+    block's noise."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + bi) * 2 + k)
+
+
 def _add_noise(inputs, noise_mag: float, generator: torch.Generator):
     noise = torch.randn(inputs.shape, generator=generator,
                         dtype=inputs.dtype, device=inputs.device)

@@ -120,6 +120,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         accum.accumulate_ss_scan(ss, ss.clone(), aug.to("meta"), 2)
 
 
+# the slab ocean's training series are a few weeks long: T below one 32-step
+# stage of the kernel and below one 8-step product block, at a width that is
+# a whole number of 64-row tiles (na = 4032 = 63 x 64 at reference width)
+SHORT_SERIES = [1, 3, 7, 8, 9, 33]
+
+
+@pytest.mark.parametrize("T", SHORT_SERIES)
+def test_short_series_plain(T):
+    """The plain version at the ocean's short series, chunk = min(16, T) as
+    train_ocean sets it, from nonzero hi and lo, against an f64 product."""
+    rng = np.random.default_rng(T)
+    R, na = 2, 192
+    aug = rng.normal(size=(T, R, na)).astype(np.float32)
+    hi0 = (rng.normal(size=(R, na, na)) * 10).astype(np.float32)
+    lo0 = (rng.normal(size=(R, na, na)) * 1e-6).astype(np.float32)
+    hi, lo = to_cpu(hi0), to_cpu(lo0)
+    accum.accumulate_ss_scan(hi, lo, to_cpu(aug), min(16, T))
+    a64 = aug.astype(np.float64)
+    want = hi0.astype(np.float64) + lo0 + np.einsum("tra,trb->rab", a64, a64)
+    np.testing.assert_allclose(_tot(hi, lo), want, rtol=1e-6, atol=1e-5)
+    ref = jacc.accumulate_ss_scan(jnp.asarray(hi0), jnp.asarray(lo0),
+                                  jnp.asarray(aug), chunk=min(16, T),
+                                  interpret=True) if T in (3, 9) else None
+    if ref is not None:
+        np.testing.assert_allclose(_tot(hi, lo), _tot(*ref), rtol=1e-6,
+                                   atol=1e-5)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -165,4 +193,26 @@ def test_kernel_matches_plain(cuda_device, T, R, na, chunk):
     hp1, lp1 = hi0.clone(), lo0.clone()
     accum.accumulate_ss_plain(hp1, lp1, aug[:chunk], chunk)
     np.testing.assert_allclose(_tot(hk1, lk1), _tot(hp1, lp1), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", SHORT_SERIES)
+@pytest.mark.parametrize("R,na", [(2, 192), (3, 4032)])
+def test_kernel_matches_plain_short_series(cuda_device, T, R, na):
+    """The kernel at the ocean's shapes: series shorter than one stage (and
+    than one 8-step product block), padded by the pre-pass, and a width
+    without a ragged tile. Same tolerance as test_kernel_matches_plain."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + T)
+    aug = torch.randn(T, R, na, device=cuda_device, generator=g)
+    hi0 = torch.randn(R, na, na, device=cuda_device, generator=g) * 10
+    lo0 = torch.randn(R, na, na, device=cuda_device, generator=g) * 1e-6
+    hk, lk = hi0.clone(), lo0.clone()
+    before = accum.accumulate_ss_scan.launches
+    accum.accumulate_ss_scan(hk, lk, aug, min(16, T))
+    assert accum.accumulate_ss_scan.launches == before + 1
+    hp, lp = hi0.clone(), lo0.clone()
+    accum.accumulate_ss_plain(hp, lp, aug, min(16, T))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_tot(hk, lk), _tot(hp, lp), rtol=1e-5,
                                atol=1e-4)

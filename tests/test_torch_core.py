@@ -11,6 +11,7 @@ from speedyml.core import calendar as jcal
 from speedyml.core import config as jcfg
 from speedyml.core import constants as jconst
 from speedyml.core import vertical as jvert
+from speedyml.coupler import anomaly as janom
 from speedyml.physics import constants as jphys
 from speedyml.reservoir import generate as jgen
 from speedyml.transforms import tables as jtab
@@ -19,6 +20,7 @@ from speedyml_torch.core import calendar as tcal
 from speedyml_torch.core import config as tcfg
 from speedyml_torch.core import constants as tconst
 from speedyml_torch.core import vertical as tvert
+from speedyml_torch.coupler import anomaly as tanom
 from speedyml_torch.physics import constants as tphys
 from speedyml_torch.reservoir import generate as tgen
 from speedyml_torch.transforms import tables as ttab
@@ -166,3 +168,59 @@ def test_device_tables_hold_the_sigma_tables():
     np.testing.assert_array_equal(dt.grdscp_col[:, 0, 0].numpy(), st.grdscp)
     np.testing.assert_array_equal(dt.fband.numpy(), tphys.make_fband())
     assert abs(sum(dt.entr) - tphys.PP.entmax) < 1e-15
+
+
+def test_shifts_from_ell():
+    idx, _, shifts = tgen.make_ring_adjacency(np.random.default_rng(0), 3,
+                                              40, 4)
+    np.testing.assert_array_equal(tgen.shifts_from_ell(idx), shifts)
+    np.testing.assert_array_equal(tgen.shifts_from_ell(idx),
+                                  jgen.shifts_from_ell(idx))
+    for bad in (idx + 1, np.where(idx == idx[1, 2, 3], 0, idx),
+                idx[:, :0]):
+        assert tgen.shifts_from_ell(bad) is None
+        assert jgen.shifts_from_ell(bad) is None
+    er, _ = tgen.make_ell_adjacency(np.random.default_rng(0), 3, 40, 4)
+    assert tgen.shifts_from_ell(er) is None
+
+
+@pytest.mark.parametrize("kw", [{}, dict(seed=3, amp=2.0, period_days=200.0,
+                                         ar_std=0.5, ar_tau_days=10.0,
+                                         t0=(1982, 1, 6), ramp_days=0.0)])
+def test_synthetic_enso(kw):
+    """The seeded SST anomaly is a pure function of (seed, date): the same
+    field in both packages, bit for bit."""
+    tb = ttab.build_tables()
+    lat = np.degrees(tb.radang)
+    lon = np.arange(tb.ix) * 360.0 / tb.ix
+    fmask_s = np.random.default_rng(1).random((tb.il, tb.ix))
+    np.testing.assert_array_equal(tanom.enso_pattern(lat, lon, fmask_s),
+                                  janom.enso_pattern(lat, lon, fmask_s))
+    je = janom.SyntheticEnso(lat, lon, fmask_s, **kw)
+    te = tanom.SyntheticEnso(lat, lon, fmask_s, **kw)
+    np.testing.assert_array_equal(te.ar, je.ar)
+    for when in [(1981, 12, 31, 18), (1982, 2, 1, 0), (1982, 2, 9, 6),
+                 (1983, 7, 4, 12), (2020, 1, 1, 0)]:
+        jd, td = jcal.ModelDate(*when), tcal.ModelDate(*when)
+        assert te.index(td) == je.index(jd)
+        np.testing.assert_array_equal(te.sst_anom_fn(td), je.anomaly(jd))
+    assert te.index(tcal.ModelDate(1981, 1, 1, 0)) == 0.0     # before t0
+    assert np.abs(te.anomaly(tcal.ModelDate(1982, 6, 1, 0))).max() > 0.1
+
+
+def test_apply_sst_anomaly():
+    from types import SimpleNamespace
+    rng = np.random.default_rng(2)
+
+    def state():
+        r = np.random.default_rng(5)
+        return SimpleNamespace(sstcl_ob=280.0 + r.random((4, 6)),
+                               sice_am=r.random((4, 6)),
+                               tice_am=260.0 + r.random((4, 6)), sst_am=None)
+
+    anom = rng.normal(size=(4, 6))
+    a, b = state(), state()
+    tanom.apply_sst_anomaly(a, anom)
+    janom.apply_sst_anomaly(b, anom)
+    np.testing.assert_array_equal(a.sst_am, b.sst_am)
+    assert np.abs(a.sst_am - a.sstcl_ob).max() > 0.5

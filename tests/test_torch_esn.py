@@ -170,6 +170,31 @@ def test_readout_dtypes(esn_pair):
         atol=1e-5 * max(scale, 1.0))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_readout_split(esn_pair, dtype):
+    """(outvec, v_ml, v_p) against the JAX package's, f32 and bf16 wout, to
+    1e-5 of the output scale; the parts add up to the whole readout."""
+    jp, tp = esn_pair
+    if dtype == "bfloat16":
+        jp, tp = jesn.cast_wout(jp), tesn.cast_wout(tp)
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(3, tp.n)).astype(np.float32)
+    mv = rng.normal(size=(3, 4)).astype(np.float32)
+    want = [np.asarray(v, np.float32) for v in jesn.readout_split(
+        jp, jnp.asarray(x), jnp.asarray(mv))]
+    got = tesn.readout_split(tp, to_cpu(x), to_cpu(mv))
+    scale = max(np.abs(want[0]).mean(), 1.0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (3, 4)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * scale)
+    out, v_ml, v_p = got
+    assert torch.equal(out, v_p + v_ml)
+    np.testing.assert_allclose(
+        out.numpy(), tesn.readout(tp, to_cpu(x), to_cpu(mv)).numpy(),
+        rtol=0, atol=1e-5 * scale)
+    assert float(v_ml.abs().max()) > 0 and float(v_p.abs().max()) > 0
+
+
 @pytest.mark.cuda
 def test_bf16_readout_on_the_card(esn_pair):
     """cuBLAS's bf16 x bf16 -> f32 batched product against the CPU's

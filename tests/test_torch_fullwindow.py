@@ -201,6 +201,37 @@ def test_trajectory_runner_across_a_day(models, forecasters):
         close(getattr(tr.cs, n), getattr(jr.cs, n), WINDOW_TOL, n)
 
 
+def test_trajectory_runner_sst_anomaly(models, forecasters):
+    """TrajectoryRunner(sst_anom_fn=...): the seeded ENSO anomaly is imposed
+    on the coupler's SST after the daily update, alike in both packages,
+    and the truth's SST sample then leaves the climatology."""
+    from speedyml.coupler.anomaly import SyntheticEnso as JaxEnso
+    from speedyml_torch.coupler.anomaly import SyntheticEnso
+    jm, tm = models
+    jfc, _ = forecasters
+    gs0 = extract(tm.dy, tm.state)
+    args = (np.degrees(tm.dy.tables.radang),
+            np.arange(96) * 360.0 / 96, tm.clim.fmask_s)
+    kw = dict(seed=3, t0=(1982, 1, 1), ramp_days=1.0, period_days=8.0)
+    jr = JaxTrajectory(jm, sst_anom_fn=JaxEnso(*args, **kw).sst_anom_fn)
+    tr = TrajectoryRunner(tm, sst_anom_fn=SyntheticEnso(*args, **kw)
+                          .sst_anom_fn)
+    jr.fc = jfc                                   # share the compiled window
+    jr.date, tr.date = JaxDate(1982, 1, 2, 18), ModelDate(1982, 1, 2, 18)
+    jr.cs = convert.coupler_state(tm.coupler)
+    tr.cs = convert.coupler_state(tm.coupler)
+    jr.gs, tr.gs = jax_grid(gs0), gs0
+    jr._hour = tr._hour = 18
+    want, got = jr.advance(), tr.advance()
+    close(got.sst, want.sst, 1e-12, "sst")
+    close(got.gs.t, want.gs.t, WINDOW_TOL, "t")
+    plain = TrajectoryRunner(tm)
+    plain.date, plain.cs = ModelDate(1982, 1, 2, 18), \
+        convert.coupler_state(tm.coupler)
+    plain.gs, plain._hour = gs0, 18
+    assert np.abs(plain.advance().sst - got.sst).max() > 0.3
+
+
 def test_float32_window(bindir, models):
     """A float32 model hands only float32 out of a window (the float64
     coupler fields are pinned once, where they are uploaded), stays inside

@@ -24,6 +24,8 @@ SLICE_MODULES = [
     "physics.condensation", "physics.radiation", "physics.surface",
     "physics.vdiff", "physics.driver", "io.boundary",
     "io.synthetic_boundary", "coupler.climatology", "coupler.daily", "model",
+    "coupler.anomaly", "reservoir.slab", "io.checkpoint", "io.ncstream",
+    "io.output", "io.weights", "hybrid.fastloop",
 ]
 
 _PROBE = """
@@ -101,6 +103,34 @@ _ENTRY_POINTS = {
                 "from speedyml_torch.physics.constants import "
                 "make_sigma_tables as m; z = np.zeros((4, 8)); "
                 "Physics(m(np.linspace(0, 1, 9)), np.ones(4), z, z, z)"),
+    "train_ocean": ("import numpy as np; from speedyml_torch import "
+                    "train_ocean, ReservoirConfig; "
+                    "from speedyml_torch.domain.decomposition import "
+                    "build_layout; L = build_layout(12, 6, 2); "
+                    "train_ocean(L, ReservoirConfig(slab_nodes=56), "
+                    "np.ones((140, L.gv_len), np.float32))"),
+    "load_model": ("import os, tempfile, torch; from speedyml_torch import "
+                   "load_model, save_model, ReservoirConfig; "
+                   "from speedyml_torch.domain.decomposition import "
+                   "build_layout; from speedyml_torch.domain.standardize "
+                   "import Standardizer; from speedyml_torch.hybrid."
+                   "experiment import HybridModel; from speedyml_torch."
+                   "reservoir.generate import generate_esn; "
+                   "L = build_layout(12, 6, 2); p = generate_esn(0, L.R, "
+                   "L.n_in, L.n_out, 0, m_target=L.n_in, device='cpu'); "
+                   "s = Standardizer(*(torch.ones(L.R, n) for n in "
+                   "(L.n_in, L.n_in, L.n_out, L.n_out))); "
+                   "path = os.path.join(tempfile.mkdtemp(), 'm.nc'); "
+                   "save_model(path, HybridModel(L, p, s, ReservoirConfig(), "
+                   "True)); print('saved', flush=True); load_model(path)"),
+    "load_speedy_restart": ("import numpy as np, tempfile, os; "
+                            "from speedyml_torch.io.checkpoint import "
+                            "load_speedy_restart; "
+                            "p = os.path.join(tempfile.mkdtemp(), 'r.npz'); "
+                            "z = np.zeros((2, 2)); np.savez(p, spec_vor=z, "
+                            "spec_div=z, spec_t=z, spec_ps=z, spec_tr=z, "
+                            "date=np.array([1982, 1, 1, 0])); "
+                            "load_speedy_restart(p)"),
     "init_rad_carry": ("import torch; from speedyml_torch.physics.driver "
                        "import init_rad_carry; "
                        "init_rad_carry(8, 4, 8, torch.float32)"),

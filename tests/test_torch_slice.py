@@ -190,6 +190,79 @@ def test_two_dry_hybrid_steps(problem):
     np.testing.assert_allclose(out["x"].numpy(), x_ref, rtol=0, atol=1e-5)
 
 
+def test_step_split_and_writers(problem, tmp_path):
+    """HybridModel.step_split against the JAX package's (the fields to 2e-4
+    of range as above, the components alike), atmo == atmo_ml + atmo_p to
+    float32 rounding; then one dry step of the runner with a writer and the
+    component writers: what lands in the files is what run() returns."""
+    from speedyml.hybrid.experiment import HybridModel as JaxHybridModel
+    from speedyml_torch.io.output import ForecastWriter, read_forecast
+    jd, L, params, stz, atmo, logp, pr0, sst, tisr, x0 = problem
+    rng = np.random.default_rng(4)
+    gv = np.asarray(jdec.pack_global(L, *map(jnp.asarray, (
+        atmo, logp, pr0, sst, tisr))))
+    mgv = (gv + 0.05 * rng.standard_normal(gv.shape)).astype(np.float32)
+    hj = JaxHybridModel(layout=L, params=params, stz=stz,
+                        rcfg=ReservoirConfig(), ml_only=False)
+    hm = HybridModel(layout=convert.region_layout(L),
+                     params=convert.esn_params(params, CPU),
+                     stz=convert.standardizer(stz, CPU),
+                     rcfg=convert.reservoir_config(ReservoirConfig()))
+    want = hj.step_split(jnp.asarray(x0), jnp.asarray(gv), jnp.asarray(mgv))
+    got = hm.step_split(to_cpu(x0), to_cpu(gv), to_cpu(mgv))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-5)
+    for g, w in zip(got[1:4], want[1:4]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=2e-4 * np.ptp(w))
+    comp, jcomp = got[4], want[4]
+    assert sorted(comp) == sorted(jcomp)
+    for k in comp:
+        w = np.asarray(jcomp[k])
+        np.testing.assert_allclose(comp[k].numpy(), w, rtol=0,
+                                   atol=2e-4 * max(np.ptp(w), 1.0))
+    # the parts add up to the whole (q above its floor everywhere here)
+    total = comp["atmo_ml"] + comp["atmo_p"]
+    np.testing.assert_allclose(total.numpy(), got[1].numpy(), rtol=1e-6,
+                               atol=1e-4)
+    np.testing.assert_allclose((comp["logp_ml"] + comp["logp_p"]).numpy(),
+                               got[2].numpy(), rtol=1e-6, atol=1e-6)
+    # step() is the same step
+    plain = hm.step(to_cpu(x0), to_cpu(gv), to_cpu(mgv))
+    assert torch.equal(plain[0], got[0])
+    np.testing.assert_allclose(plain[1].numpy(), got[1].numpy(), rtol=1e-6,
+                               atol=1e-4)
+    with pytest.raises(ValueError):
+        dataclasses.replace(hm, ml_only=True).step_split(
+            to_cpu(x0), to_cpu(gv), to_cpu(mgv))
+
+    td = Dycore(convert.model_config(ModelConfig(dtype="float64")),
+                device=CPU)
+    runner = HybridRunner(hm, SpeedyForecaster.dry(td))
+    paths = [str(tmp_path / f"{n}.nc") for n in ("all", "ml", "p")]
+    # the component files hold the 3-D fields and logp only
+    writers = [ForecastWriter(p, L.kx, L.il, L.ix, with_precip=i == 0,
+                              with_sst=i == 0)
+               for i, p in enumerate(paths)]
+    out = runner.run(to_cpu(x0), atmo, logp, pr0,
+                     speedyml_torch.ModelDate(1982, 1, 15, 0), 2,
+                     sst_fn=lambda d: sst, tisr_fn=lambda d: tisr,
+                     writer=writers[0], component_writers=writers[1:])
+    for w in writers:
+        w.close()
+    whole, ml, p = (read_forecast(q) for q in paths)
+    assert whole["Temperature"].shape == (2, L.kx, L.il, L.ix)
+    np.testing.assert_array_equal(whole["Temperature"],
+                                  out["atmo"][:, 0].numpy())
+    np.testing.assert_array_equal(whole["p6hr"], out["precip_mm"].numpy())
+    np.testing.assert_array_equal(whole["SST"], out["sst"].numpy())
+    np.testing.assert_allclose(ml["U-wind"] + p["U-wind"], whole["U-wind"],
+                               rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(ml["logp"] + p["logp"], whole["logp"],
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_full_physics_hybrid_step(problem, tmp_path):
     """One hybrid step whose window is the full-physics one: the port's
     HybridRunner.run with its default SST and TISR against the JAX
