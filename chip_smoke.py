@@ -29,7 +29,16 @@ readout 1152 x 136 x 5896), twice:
     through the chunked `ScanHybridRunner` with the ocean's weekly SST
     feedback, a forecast file and a checkpoint, one chunk under
     `torch.cuda.set_sync_debug_mode("error")`, and the per-step
-    `HybridRunner` resuming the chunked loop's checkpoint for a week.
+    `HybridRunner` resuming the chunked loop's checkpoint for a week;
+  * the training pipeline, the way the model's users make a model: a
+    full-physics truth with its dry-core forecasts through
+    `FusedDataGenerator` (one day of it with host syncs forbidden),
+    `train_hybrid(also_ml=True)` over all regions with block checkpoints,
+    a resume after deleting blocks (bitwise), the ML-only model
+    (`ml_variant`) for one chunk of `ScanHybridRunner`, the series written
+    as ERA-schema files, `train_from_era` on them (one step held against
+    the in-memory model's), and hybrid steps of that model through
+    `HybridRunner` on an `ObservedBoundary` over the files.
 
 Before these, the column physics on the card is held against the same code
 on the CPU (asked for explicitly) in float64.
@@ -59,14 +68,15 @@ TRAIN_CHUNK = 128          # time steps per normal-equation fold
 TRAIN_SAMPLES = 2 * TRAIN_CHUNK   # training pairs after the discard
 PREDICT_STEPS = 3
 N_SYNC = 40
-# the dry path's training pairs after the discard
-DRY_PAIRS = TRAIN_CHUNK
+# the dry path's training pairs after the discard (the pipeline's length:
+# the script's run time is the smoke run's budget)
+DRY_PAIRS = 64
 # the full-physics path: days of spin-up from rest, the fewest and the most
 # training pairs, and the run time [s] the series is sized to stay under.
-# The fewest give 169 samples: six ocean weeks of 28, and train_ocean needs
+# The fewest give 141 samples: five ocean weeks of 28, and train_ocean needs
 # more than four
 SPINUP_DAYS = 5
-FULL_PAIRS = (128, 256)
+FULL_PAIRS = (100, 256)
 TARGET_SECONDS = 600.0
 # the coupled loop: steps of an ocean week, weeks through the chunked loop,
 # and the hybrid steps the coupled phases take in all (two weeks chunked, one
@@ -80,7 +90,7 @@ COUPLED_STEPS = (2 * COUPLED_WEEKS) * WEEK
 SHORT_SERIES = (1, 3, 7, 8, 9, 33)
 # the seeded SST anomaly of the truth [K, days]: large and fast enough to
 # lift the weekly SST variance of the tropical Pacific regions over the
-# ocean's activity threshold within a six-week series
+# ocean's activity threshold within a five-week series
 ENSO = dict(seed=7, amp=2.5, period_days=56.0, ramp_days=3.0)
 # chunked loop against the per-step loop over one week from one checkpoint,
 # in float32 windows whose moist triggers amplify rounding: the first step's
@@ -90,6 +100,31 @@ COUPLED_WEEK_RMS_TOL = 2.0
 # windows inside the series have run up to 1.5 times as long as the one
 # timed alone just before them (the host sets the pace, and it varies)
 WINDOW_MARGIN = 1.5
+# the training pipeline: pairs after the discard of its generated series,
+# steps of the ML-only loop (one chunk), hybrid steps on the observed SST,
+# the year its ERA-schema files are written for, the file-trained hybrid's
+# step against the in-memory one's (of each field's range: the trained
+# readouts differ as the float32 normal equations of slightly different q
+# series round, PERF.md section 6 and tests/test_torch_training.py), and
+# what the phase spends outside its windows [s]: two trainings with also_ml
+# and their block files, the resume, train_from_era, the kernel check
+PIPELINE_PAIRS = 64
+ML_STEPS = 28
+OBSERVED_STEPS = 3
+PIPELINE_YEAR = 1982
+FILE_MODEL_TOL = 5e-3
+PIPELINE_FIXED_SECONDS = 150.0
+# the ML-only model through the per-step runner against the chunked loop:
+# the same float32 arithmetic on the same packed inputs, whose SST and TISR
+# reach float32 from float64 host fields on two ways (largest |difference|
+# over all fields and steps)
+ML_LOOPS_TOL = 1e-3
+# device bytes a training block holds per entry of its (na, na) systems at
+# the solve: the f32 hi/lo pair (8), the f64 system and its Cholesky factor
+# (16), and one for the solver's workspace and the block's other tensors
+# (an also_ml block of 48 regions at na=5896 peaked at 24.96 bytes an entry
+# on the H100, PERF.md section 5; 24 until then)
+SOLVE_BYTES_PER_ENTRY = 25
 # card against CPU, float64: of each output's largest value
 PHYSICS_TOL = 1e-10
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
@@ -402,10 +437,10 @@ def make_series(dy, fc, n_samples, seed, date0):
 
 
 def region_block_for(na, free_bytes, R):
-    """Regions per training block: the (Rb, na, na) f32 hi/lo pair plus the
-    f64 system and its Cholesky factor at the solve, in half the free
-    memory, rounded down to a multiple of 8."""
-    per_region = na * na * (2 * 4 + 2 * 8)
+    """Regions per training block: SOLVE_BYTES_PER_ENTRY of each (na, na)
+    system per region, in half the free memory, rounded down to a multiple
+    of 8."""
+    per_region = na * na * SOLVE_BYTES_PER_ENTRY
     rb = int(0.5 * free_bytes / per_region) // 8 * 8
     return max(1, min(R, rb))
 
@@ -708,8 +743,13 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     discard = max(1, rcfg.discardlength // rcfg.timestep)
     per_window = WINDOW_MARGIN * (statistics.median(win_ms) + sf_ms) / 1e3
     # what the phases after the series take: the coupled loop's hybrid steps,
-    # the ocean's training, the model file, the closed-loop steps
-    reserve = COUPLED_STEPS * per_window + 120.0
+    # the ocean's training, the model file, the closed-loop steps; then the
+    # pipeline phase: its spin-up, one day checked for host syncs, its series
+    # (a full-physics and a dry window, a quarter of the time, a sample) and
+    # its observed-SST steps
+    pipeline = (4 * (SPINUP_DAYS + 1) + 1.25 * (discard + 1 + PIPELINE_PAIRS)
+                + OBSERVED_STEPS) * per_window + PIPELINE_FIXED_SECONDS
+    reserve = COUPLED_STEPS * per_window + 120.0 + pipeline
     left = TARGET_SECONDS - (time.perf_counter() - t_run0) - reserve
     pairs = FULL_PAIRS[0]
     for cand in FULL_PAIRS[1:]:
@@ -1040,6 +1080,342 @@ def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
     return out
 
 
+# ----------------------------------------------------------------------
+# the training pipeline
+# ----------------------------------------------------------------------
+def phase_pipeline(bindir, region_block):
+    """The pipeline the model's users run to make a model: FusedDataGenerator
+    for a full-physics truth with its dry-core forecasts (one day of it with
+    host syncs forbidden first) -> train_hybrid(also_ml=True) over all
+    regions with block checkpoints -> a resume from a directory missing
+    blocks, bitwise -> ml_variant through ScanHybridRunner for one chunk ->
+    the series as ERA-schema files -> train_from_era on them, one step held
+    against the in-memory model's -> hybrid steps of the file-trained model
+    on an ObservedBoundary over the files. Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from speedyml_torch import (FusedDataGenerator, ModelConfig, ModelDate,
+                                ObservedBoundary, ReservoirConfig,
+                                ScanHybridRunner, ml_variant, train_from_era,
+                                train_hybrid)
+    from speedyml_torch.core.calendar import (datetime_from_hours,
+                                              hours_since_epoch)
+    from speedyml_torch.coupler.anomaly import SyntheticEnso
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import (HybridRunner,
+                                                  transform_and_pack)
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+    from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
+    from speedyml_torch.io import era
+    from speedyml_torch.model import Speedy
+    from speedyml_torch.ops import accum
+
+    out = {}
+    rcfg = ReservoirConfig()
+    sp = Speedy(ModelConfig(), bindir)         # no device given: the card
+    dev = sp.device
+    cfg = sp.config
+    radang_deg = np.degrees(np.asarray(sp.dy.tables.radang))
+    L = build_layout(ix=cfg.ix, il=cfg.il, kx=cfg.kx, radang_deg=radang_deg)
+    enso = SyntheticEnso(radang_deg, np.arange(cfg.ix) * 360.0 / cfg.ix,
+                         sp.clim.fmask_s,
+                         t0=(PIPELINE_YEAR, 1, 1 + SPINUP_DAYS), **ENSO)
+    gen = FusedDataGenerator(sp, hours=rcfg.timestep,
+                             sst_anom_fn=enso.sst_anom_fn)
+    t0 = time.perf_counter()
+    gen.initialize(PIPELINE_YEAR, 1, spinup_days=SPINUP_DAYS)
+    torch.cuda.synchronize()
+    print(f"pipeline: rest start + {SPINUP_DAYS} days in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # one generator day with host syncs forbidden between its first launch
+    # and the read of its flux sums (its result is dropped: the day body
+    # changes no state of the generator)
+    surf, forcing, dry, _ = gen._day_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        day = gen._run_day(gen.gs, surf, forcing, dry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not bool(day[3]):
+        raise AssertionError("the sync-free generator day tripped the gate")
+    del day, surf, forcing, dry
+    print("one generator day under set_sync_debug_mode('error'): no host "
+          "sync between its first launch and the read of its flux sums")
+
+    discard = max(1, rcfg.discardlength // rcfg.timestep)
+    n_samples = discard + 1 + PIPELINE_PAIRS
+    t0 = time.perf_counter()
+    series = gen.generate(n_samples)
+    t_gen = time.perf_counter() - t0
+    out.update(samples=n_samples, generate_s=t_gen,
+               s_per_sample=t_gen / n_samples)
+    shape = (n_samples, 4, cfg.kx, cfg.il, cfg.ix)
+    for k in ("atmo", "m_atmo"):
+        if series[k].shape != shape:
+            raise AssertionError(f"{k} {series[k].shape}, not {shape}")
+    for k, v in series.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"generated {k} has non-finite values")
+    ranges = {}
+    for label, a in (("truth", series["atmo"]), ("model", series["m_atmo"])):
+        for i, name in enumerate(("t", "u", "v", "q")):
+            lo, hi = SAFE_BOUNDS[name]
+            vmin, vmax = float(a[:, i].min()), float(a[:, i].max())
+            if not (lo <= vmin and vmax <= hi):
+                raise AssertionError(f"generated {label} {name} in "
+                                     f"{vmin:.1f}..{vmax:.1f} leaves "
+                                     f"{lo}..{hi}")
+            ranges[f"{label}_{name}"] = (vmin, vmax)
+    pr = series["precip"]
+    wet = float((pr > 0.0).mean())
+    if pr.min() < 0.0 or not 0.0 < wet < 1.0:
+        raise AssertionError(f"generated rain in {wet:.0%} of the cells, "
+                             f"min {pr.min()}")
+    if np.any(series["m_precip"]):
+        raise AssertionError("the dry-core forecasts carry precipitation")
+    if not np.all(np.diff(series["hours"]) == rcfg.timestep):
+        raise AssertionError("generated samples are not 6-hourly")
+    print(f"FusedDataGenerator: {n_samples} samples ({discard} discard + 1 + "
+          f"{PIPELINE_PAIRS} pairs) in {t_gen:.1f} s: "
+          f"{out['s_per_sample']:.3f} s/sample (a full-physics and a dry "
+          f"window each; device idle share: scripts_torch/profile_slice.py); "
+          + "; ".join(f"{lab} T {ranges[lab + '_t'][0]:.1f}.."
+                      f"{ranges[lab + '_t'][1]:.1f} K, |u| <= "
+                      f"{max(map(abs, ranges[lab + '_u'])):.1f} m/s, q <= "
+                      f"{ranges[lab + '_q'][1]:.1f} g/kg"
+                      for lab in ("truth", "model"))
+          + f"; rain in {wet:.0%} of cells and windows, max "
+          f"{pr.max():.1f} mm/6h; model precipitation all zero")
+
+    def up(k):
+        return torch.as_tensor(series[k], device=dev)
+
+    eps = rcfg.precip_epsilon
+    gv_truth = transform_and_pack(L, up("atmo"), up("logp"), up("precip"),
+                                  up("sst"), up("tisr"), eps)
+    gv_model = transform_and_pack(L, up("m_atmo"), up("m_logp"),
+                                  up("m_precip"), up("sst"), up("tisr"), eps)
+    n = rcfg.nodes_per_input // L.n_in * L.n_in
+    na = L.n_out + n
+    nblocks = -(-L.R // region_block)
+    chunk = min(TRAIN_CHUNK, PIPELINE_PAIRS)
+    train_kw = dict(seed=SEED, region_block=region_block, chunk=chunk)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "blocks")
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches = accum.accumulate_ss_scan.launches
+        t0 = time.perf_counter()
+        hm = train_hybrid(L, rcfg, gv_truth, gv_model, verbose=True,
+                          checkpoint_dir=ckdir, also_ml=True, **train_kw)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["launches_train"] = accum.accumulate_ss_scan.launches - launches
+        peak = torch.cuda.max_memory_allocated()
+        # a block's own working set: the peak over what the run held before
+        # it and the two readouts it fills block by block
+        held = 4 * L.R * L.n_out * (na + n)
+        budget = region_block * na * na * SOLVE_BYTES_PER_ENTRY
+        out.update(peak_gib=peak / 2**30,
+                   block_peak_gib=(peak - before - held) / 2**30,
+                   budget_gib=budget / 2**30)
+        check_trained(hm, L, na)
+        w = hm.wout_ml
+        if w is None or tuple(w.shape) != (L.R, L.n_out, n) or \
+                not bool(torch.isfinite(w).all()) or \
+                w.device != hm.params.wout.device or w.device.type != dev.type:
+            raise AssertionError(f"no finite ML-only readout on {dev}")
+        ck_bytes = sum(os.path.getsize(os.path.join(ckdir, f))
+                       for f in os.listdir(ckdir))
+        print(f"train_hybrid(also_ml=True, checkpoint_dir): {L.R} regions, "
+              f"na={na}, {PIPELINE_PAIRS} pairs, {nblocks} blocks of "
+              f"{region_block}: {out['train_s']:.1f} s, "
+              f"{out['launches_train']} kernel launches; peak device memory "
+              f"{out['peak_gib']:.2f} GiB, of it an also_ml block's own "
+              f"{out['block_peak_gib']:.2f} GiB (region_block_for budgets "
+              f"{out['budget_gib']:.2f} GiB); block files "
+              f"{ck_bytes / 1e9:.2f} GB")
+
+        # resume: the last two blocks gone, the ML readout of the last one
+        # left gone too; those three are trained again, bitwise the same
+        names = sorted(os.listdir(ckdir))
+        for name in names[-2:]:
+            os.remove(os.path.join(ckdir, name))
+        path = os.path.join(ckdir, names[-3])
+        with np.load(path) as z:
+            keep = {k: z[k] for k in z.files if k != "wout_ml"}
+        np.savez(path, **keep)
+        launches = accum.accumulate_ss_scan.launches
+        t0 = time.perf_counter()
+        hr = train_hybrid(L, rcfg, gv_truth, gv_model, checkpoint_dir=ckdir,
+                          also_ml=True, **train_kw)
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        out["launches_resume"] = accum.accumulate_ss_scan.launches - launches
+        for k, a, b in (("wout", hm.params.wout, hr.params.wout),
+                        ("wout_ml", hm.wout_ml, hr.wout_ml),
+                        ("win", hm.params.win, hr.params.win),
+                        ("a_idx", hm.params.a_idx, hr.params.a_idx),
+                        ("a_val", hm.params.a_val, hr.params.a_val)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"resumed {k} differs from the "
+                                     f"uninterrupted run's")
+        if out["launches_resume"] != 3:
+            raise AssertionError(f"the resume trained "
+                                 f"{out['launches_resume']} blocks, not 3")
+        del hr
+        torch.cuda.empty_cache()
+        print(f"resume: {len(names) - 3} blocks read, 3 trained again (2 "
+              f"files deleted, 1 without wout_ml) in {out['resume_s']:.1f} "
+              f"s; wout, wout_ml, win, a_idx, a_val bitwise equal")
+
+        # the ML-only model for one chunk of the chunked loop, from the last
+        # sample with the reservoirs synchronized on the samples before it
+        ml = ml_variant(hm)
+        x0 = ml.synchronize(gv_truth[-1 - N_SYNC:-1])
+        torch.cuda.synchronize()
+        p0, p1 = L.gv_sizes["precip"]
+        date_last = ModelDate(*datetime_from_hours(int(series["hours"][-1])))
+        scan = ScanHybridRunner(ml, sp, chunk=ML_STEPS)
+        run = scan.run(x0, up("atmo")[-1], up("logp")[-1],
+                       gv_truth[-1, p0:p1].reshape(cfg.il, cfg.ix),
+                       date_last, ML_STEPS)
+        if run["aborted"] or run["steps_done"] != ML_STEPS:
+            raise AssertionError(f"the ML-only loop stopped after "
+                                 f"{run['steps_done']} of {ML_STEPS} steps")
+        a = run["atmo"]
+        if not (np.isfinite(a).all() and np.isfinite(run["logp"]).all()):
+            raise AssertionError("the ML-only loop gave non-finite values")
+        for i, name in enumerate(("t", "u", "v", "q")):
+            lo, hi = SAFE_BOUNDS[name]
+            if not (lo <= a[:, i].min() and a[:, i].max() <= hi):
+                raise AssertionError(f"ML-only {name} in {a[:, i].min():.1f}"
+                                     f"..{a[:, i].max():.1f} leaves "
+                                     f"{lo}..{hi}")
+        out["ml_step_ms"] = run["chunk_ms"][0] / ML_STEPS
+        print(f"ML-only loop (ml_variant through ScanHybridRunner): "
+              f"{ML_STEPS} steps, gate held, {out['ml_step_ms']:.2f} ms/step "
+              f"by CUDA events; T {a[:, 0].min():.1f}..{a[:, 0].max():.1f} K, "
+              f"|u| <= {np.abs(a[:, 1]).max():.1f} m/s, q <= "
+              f"{a[:, 3].max():.1f} g/kg")
+        # the same steps through the per-step runner, which skips the window
+        t0 = time.perf_counter()
+        per_step = HybridRunner(ml, None, clim=sp.clim, dy=sp.dy).run(
+            x0, up("atmo")[-1], up("logp")[-1],
+            gv_truth[-1, p0:p1].reshape(cfg.il, cfg.ix), date_last, ML_STEPS)
+        torch.cuda.synchronize()
+        out["ml_per_step_ms"] = 1e3 * (time.perf_counter() - t0) / ML_STEPS
+        d_ps = float(np.abs(per_step["atmo"].cpu().numpy() - a).max())
+        if per_step["aborted"] or not d_ps <= ML_LOOPS_TOL:
+            raise AssertionError(f"per-step ML-only run against the chunked "
+                                 f"one: max |diff| {d_ps:.3e}")
+        out["ml_loops_max_abs_diff"] = d_ps
+        print(f"ML-only, the per-step HybridRunner over the same {ML_STEPS} "
+              f"steps: {out['ml_per_step_ms']:.2f} ms/step on the host clock; "
+              f"max |diff| to the chunked loop {d_ps:.3e} (bound "
+              f"{ML_LOOPS_TOL:g})")
+        del scan, run, ml, per_step
+
+        # the series as ERA-schema files: record 0 dated 1 January 00h of
+        # the year (the files' own calendar), q in kg/kg in the truth file
+        # and in g/kg in the model-state file, as the readers expect
+        era_dir = os.path.join(tmp, "era")
+        os.makedirs(era_dir)
+        y = PIPELINE_YEAR
+        atmo_f = series["atmo"].astype(np.float32)
+        atmo_f[:, 3] /= 1000.0
+        t0 = time.perf_counter()
+        era.write_era_year(era.era_file_name(era_dir, y), atmo_f,
+                           series["logp"], sst=series["sst"],
+                           p6hr=series["precip"])
+        era.write_tisr_year(era.tisr_file_name(era_dir, y), series["tisr"])
+        era.write_era_year(os.path.join(era_dir, f"restart_6hour_y{y}.nc"),
+                           series["m_atmo"], series["m_logp"],
+                           p6hr=series["m_precip"])
+        out["files_write_s"] = time.perf_counter() - t0
+        offset_h = int(series["hours"][0]) - hours_since_epoch(y, 1, 1, 0)
+
+        t0 = time.perf_counter()
+        hf, data, gv_f = train_from_era(L, rcfg, era_dir, y, y,
+                                        model_dir=era_dir, device=dev,
+                                        **train_kw)
+        torch.cuda.synchronize()
+        out["train_from_era_s"] = time.perf_counter() - t0
+        check_trained(hf, L, na)
+        if not (torch.equal(hf.params.win, hm.params.win)
+                and torch.equal(hf.params.a_val, hm.params.a_val)):
+            raise AssertionError("train_from_era built other reservoirs")
+        out["gv_file_max_abs_diff"] = float((gv_f - gv_truth).abs().max())
+        # one hybrid step of each model from the same synchronized state
+        a_m, lp_m, pt_m = hm.step(x0, gv_truth[-1], gv_model[-1])[1:]
+        a_f, lp_f, pt_f = hf.step(x0, gv_truth[-1], gv_model[-1])[1:]
+        worst = 0.0
+        for name, g, w in (("t", a_f[0], a_m[0]), ("u", a_f[1], a_m[1]),
+                           ("v", a_f[2], a_m[2]), ("q", a_f[3], a_m[3]),
+                           ("logp", lp_f, lp_m), ("precip", pt_f, pt_m)):
+            rel = float((g - w).abs().max()) / float(w.max() - w.min())
+            worst = max(worst, rel)
+            if not rel <= FILE_MODEL_TOL:
+                raise AssertionError(f"train_from_era step: {name} differs "
+                                     f"by {rel:.2e} of its range")
+        out["file_step_rel"] = worst
+        del hm, gv_model
+        torch.cuda.empty_cache()
+        print(f"ERA-schema files ({len(os.listdir(era_dir))}) written in "
+              f"{out['files_write_s']:.1f} s; train_from_era: "
+              f"{out['train_from_era_s']:.1f} s, the same reservoirs, packed "
+              f"series within {out['gv_file_max_abs_diff']:.2e} of the "
+              f"in-memory one (q through kg/kg in float32); one step against "
+              f"the in-memory hybrid's: largest difference {worst:.2e} of a "
+              f"field's range (bound {FILE_MODEL_TOL:g})")
+
+        # hybrid steps of the file-trained model on the observed SST and
+        # TISR: the files' calendar runs offset_h hours behind the series'
+        ob = ObservedBoundary(era_dir, y, tisr_dir=era_dir)
+        i0 = n_samples - OBSERVED_STEPS
+        date = ModelDate(y, 1, 1, 0)
+        date.advance_hours(rcfg.timestep * i0)
+        x = hf.synchronize(gv_f[i0 - N_SYNC:i0])
+        t = data.truth
+        runner = HybridRunner(hf, SpeedyForecaster(sp, hours=rcfg.timestep))
+        t0 = time.perf_counter()
+        res = runner.run(x, t.atmo[i0], t.logp[i0],
+                         gv_f[i0, p0:p1].reshape(cfg.il, cfg.ix), date,
+                         OBSERVED_STEPS, sst_fn=ob.sst_fn, tisr_fn=ob.tisr_fn)
+        torch.cuda.synchronize()
+        out["observed_s"] = time.perf_counter() - t0
+        if res["aborted"] or len(res["atmo"]) != OBSERVED_STEPS:
+            raise AssertionError("the observed-SST run tripped the gate")
+        a = res["atmo"]
+        for i, name in enumerate(("t", "u", "v", "q")):
+            lo, hi = SAFE_BOUNDS[name]
+            if not (bool(torch.isfinite(a[:, i]).all())
+                    and lo <= float(a[:, i].min())
+                    and float(a[:, i].max()) <= hi):
+                raise AssertionError(f"observed-SST run: {name} out of "
+                                     f"bounds")
+        d = ModelDate(date.iyear, date.imonth, date.iday, date.ihour)
+        for k in range(OBSERVED_STEPS):
+            file_sst = ob.sst_fn(d)
+            if not (np.array_equal(res["sst"][k].cpu().numpy(), file_sst)
+                    and np.array_equal(file_sst,
+                                       series["sst"][i0 + k].astype(
+                                           np.float32))):
+                raise AssertionError(f"observed-SST step {k}: the SST is "
+                                     f"not the file's at its date")
+            d.advance_hours(rcfg.timestep)
+        print(f"observed SST: {OBSERVED_STEPS} hybrid steps of the "
+              f"file-trained model through HybridRunner.run with an "
+              f"ObservedBoundary in {out['observed_s']:.1f} s, gate held; "
+              f"each step's SST is the file's at its date (the files' "
+              f"calendar {offset_h} h behind the series'); T "
+              f"{float(a[:, 0].min()):.1f}..{float(a[:, 0].max()):.1f} K")
+    return out
+
+
 def inject_state(sp, gs):
     """The physics time level of a grid state, through the safety gate."""
     from speedyml_torch.hybrid.state_io import inject
@@ -1101,14 +1477,18 @@ def main():
         full, n_full, n_full_single = counted(
             "full-physics path", phase_full_physics_path, bindir,
             region_block, t_run0)
-    # the dry training, and as a rule the full-physics one, give the kernel
-    # another series length than the one timed above: hold it against the
-    # plain version at that shape too
-    at_dry = timed("kernel at the dry path's shape", phase_kernel,
-                   region_block, DRY_PAIRS, min(TRAIN_CHUNK, DRY_PAIRS), na,
-                   True)
-    at_dry = dict(T=DRY_PAIRS, **at_dry["accumulate_ss_scan"])
-    at_full = at_dry if full["pairs"] == DRY_PAIRS else None
+        pipe, n_pipe, n_pipe_single = counted(
+            "pipeline", phase_pipeline, bindir, region_block)
+    # the paths give the kernel other series lengths than the one timed
+    # above: hold it against the plain version at each of them too
+    at_len = {}
+    for T in sorted({DRY_PAIRS, full["pairs"], PIPELINE_PAIRS}):
+        res = timed(f"kernel at T={T}", phase_kernel, region_block, T,
+                    min(TRAIN_CHUNK, T), na, True)
+        at_len[T] = dict(T=T, R=region_block, na=na,
+                         **res["accumulate_ss_scan"])
+    at_dry, at_full, at_pipe = (at_len[DRY_PAIRS], at_len[full["pairs"]],
+                                at_len[PIPELINE_PAIRS])
     coupled = full["coupled"]
     n_ocean = coupled["launches_ocean_training"]
     n_full -= n_ocean
@@ -1125,15 +1505,18 @@ def main():
     # does not call it, so it is checked and timed above but listed apart
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
-                          n_dry + n_full + n_ocean, launches_dry_path=n_dry,
+                          n_dry + n_full + n_ocean + n_pipe,
+                          launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
                           launches_ocean_training=n_ocean,
+                          launches_pipeline=n_pipe,
                           at_dry_shape=at_dry,
                           at_full_physics_shape=at_full,
-                          at_ocean_shape=coupled.pop("at_ocean_shape"))],
+                          at_ocean_shape=coupled.pop("at_ocean_shape"),
+                          at_pipeline_shape=at_pipe)],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
-                           n_dry_single + n_full_single)],
-        "full_physics": full}))
+                           n_dry_single + n_full_single + n_pipe_single)],
+        "full_physics": full, "pipeline": pipe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -18,6 +18,11 @@ Four measurements at the reference width of chip_smoke.py:
     solve. The series is random and standardized, so the block's numbers do
     not depend on a truth series. The block runs three times; the first
     includes the kernel build and the first CUDA calls;
+  * one day of the training-data generator (`FusedDataGenerator._run_day`:
+    four full-physics truth windows and four dry-core forecasts from the
+    spun-up model) under torch.profiler, beside the host time of its day
+    inputs (`_day_inputs`: fordate for the truth, four fresh-coupler
+    forcings, one upload);
   * one chunk of the coupled closed loop (`ScanHybridRunner.run_chunk`, full
     physics, 4 steps) under torch.profiler, and the coupled step split into
     its parts: the window with its packing, the reservoir step, the weekly
@@ -147,6 +152,24 @@ def profile_full_physics_window(sp):
                    fc.nsteps_window + 1)
 
 
+def profile_generator_day(sp):
+    from speedyml_torch import FusedDataGenerator, ModelDate
+    from speedyml_torch.hybrid.state_io import extract
+
+    gen = FusedDataGenerator(sp)
+    gen.date = ModelDate(sp.date.iyear, sp.date.imonth, sp.date.iday,
+                         sp.date.ihour)
+    gen.cs, gen.gs = sp.coupler, extract(sp.dy, sp.state, level=0)
+    ms = _host_ms(gen._day_inputs)
+    surf, forcing, dry, _ = gen._day_inputs()
+    print(f"generator day inputs (fordate, {gen.wpd} fresh-coupler "
+          f"forcings, one upload): {ms:.2f} ms on the host clock")
+    nsteps = 2 * gen.wpd * (gen.fc_phys.nsteps_window + 1)
+    profile_window(f"generator day ({gen.wpd} full-physics + {gen.wpd} dry "
+                   f"windows)",
+                   lambda: gen._run_day(gen.gs, surf, forcing, dry), nsteps)
+
+
 def profile_train_block():
     import numpy as np
     import torch
@@ -243,7 +266,7 @@ def profile_coupled_chunk(sp):
     from speedyml_torch.domain.decomposition import build_layout, pack_global
     from speedyml_torch.domain.standardize import Standardizer
     from speedyml_torch.hybrid.experiment import HybridModel
-    from speedyml_torch.hybrid.fastloop import _Download
+    from speedyml_torch.device import Download
     from speedyml_torch.hybrid.state_io import extract
     from speedyml_torch.io.output import ForecastWriter
     from speedyml_torch.physics.radiation import diurnal_tisr
@@ -330,7 +353,7 @@ def profile_coupled_chunk(sp):
         with ForecastWriter(f"{tmp}/f.nc", cfg.kx, cfg.il, cfg.ix,
                             with_sst=True) as w:
             def flush():
-                a, lp, p_log, sst = _Download(stacks, week,
+                a, lp, p_log, sst = Download(stacks, week,
                                               scan._side).arrays()
                 for j in range(week):
                     w.append(a[j], lp[j], precip_mm=p_log[j], sst=sst[j])
@@ -350,6 +373,7 @@ def main():
     profile_dry_window()
     sp = spun_up_model()
     profile_full_physics_window(sp)
+    profile_generator_day(sp)
     profile_coupled_chunk(sp)
     del sp
     import torch

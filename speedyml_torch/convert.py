@@ -21,6 +21,7 @@ from .device import resolve_device
 from .domain.decomposition import RegionLayout
 from .domain.standardize import Standardizer
 from .dynamics.state import SpectralState
+from .hybrid.experiment import HybridModel
 from .hybrid.state_io import GridState
 from .physics.driver import RadCarry, SurfaceDailyState
 from .reservoir.esn import EsnParams
@@ -78,6 +79,18 @@ def model_config(cfg) -> ModelConfig:
 def reservoir_config(cfg) -> ReservoirConfig:
     """speedyml ReservoirConfig -> the port's ReservoirConfig."""
     return _config(ReservoirConfig, cfg)
+
+
+def hybrid_model(hm, device=None) -> HybridModel:
+    """speedyml HybridModel -> HybridModel on `device`, with the ML-only
+    readout of an also_ml training (its host_np["wout_ml"]) as wout_ml."""
+    host = getattr(hm, "host_np", None) or {}
+    return HybridModel(layout=region_layout(hm.layout),
+                       params=esn_params(hm.params, device),
+                       stz=standardizer(hm.stz, device),
+                       rcfg=reservoir_config(hm.rcfg), ml_only=hm.ml_only,
+                       wout_ml=None if "wout_ml" not in host
+                       else tensor(host["wout_ml"], device))
 
 
 def spectral_state(s, device=None) -> SpectralState:

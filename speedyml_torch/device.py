@@ -18,3 +18,34 @@ def to_host(a) -> np.ndarray:
     """A tensor (on any device) or an array as host numpy. On a tensor of
     the card this waits for the work that produces it."""
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class Download:
+    """Tensors on their way to the host. On the card the copies go into
+    pinned host buffers on `side_stream`, after the work already queued on
+    the current stream, so they overlap the kernels queued next; `arrays()`
+    waits on the event recorded behind them. On the CPU (side_stream None)
+    the tensors are the host arrays already. The first `upto` entries of
+    each are kept."""
+
+    def __init__(self, tensors, upto: int, side_stream):
+        self.upto = upto
+        self._src = tensors          # held until the copies are done
+        self._event = None
+        if side_stream is None:
+            self._host = tensors
+            return
+        side_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side_stream):
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True).copy_(
+                                          t, non_blocking=True)
+                          for t in tensors]
+            self._event = torch.cuda.Event()
+            self._event.record(side_stream)
+
+    def arrays(self):
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return [h.numpy()[:self.upto] for h in self._host]

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -39,7 +40,7 @@ from ..io.checkpoint import load_prediction, save_prediction
 from ..physics.radiation import diurnal_tisr
 from ..reservoir.esn import (EsnParams, advance, predict_step, readout_split,
                              synchronize)
-from ..reservoir.generate import generate_esn, radius_by_lat
+from ..reservoir.generate import generate_esn, radius_by_lat, shifts_from_ell
 from ..reservoir.slab import compose_week_inputs
 from ..reservoir.training import (block_generator, drive_and_accumulate,
                                   drive_discard, init_normal_eq,
@@ -159,6 +160,9 @@ class HybridModel:
     stz: Standardizer
     rcfg: ReservoirConfig
     ml_only: bool = False
+    # the ML-only readout (R, n_out, n) f32 of an also_ml training, on the
+    # device of the weights (3.6 GB at reference width); see ml_variant
+    wout_ml: Optional[torch.Tensor] = None
 
     def step(self, x, gv, model_gv=None):
         """One reservoir step on the packed supervector gv (gv_len,):
@@ -225,10 +229,50 @@ class HybridModel:
 # ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
+def _load_block(path: str, also_ml: bool, dev) -> Optional[dict]:
+    """A finished region block from its checkpoint file, as tensors on dev;
+    None when the file is absent, or when an also_ml run finds it without
+    the ML readout (the accumulator that readout needs is gone, so the block
+    is trained again)."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        if also_ml and "wout_ml" not in z.files:
+            return None
+        part = {k: torch.as_tensor(z[k], device=dev)
+                for k in ("wout", "a_val", "win")
+                + (("wout_ml",) if also_ml else ())}
+        part["a_idx"] = torch.as_tensor(z["a_idx"], dtype=torch.int64,
+                                        device=dev)
+        part["a_shift"] = (tuple(int(s) for s in z["a_shift"])
+                           if "a_shift" in z.files else None)
+        part["q"] = int(z["q"])
+    return part
+
+
+def _save_block(path: str, part: dict) -> None:
+    """One region block in the JAX package's checkpoint file (the same
+    keys and dtypes: a_idx int32, the rest float32), written atomically."""
+    extra = {}
+    if part["a_shift"] is not None:
+        extra["a_shift"] = np.asarray(part["a_shift"], np.int32)
+    if "wout_ml" in part:
+        extra["wout_ml"] = to_host(part["wout_ml"])
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:           # atomic: write, then rename
+        np.savez(fh, wout=to_host(part["wout"]),
+                 a_idx=to_host(part["a_idx"]).astype(np.int32),
+                 a_val=to_host(part["a_val"]), win=to_host(part["win"]),
+                 q=part["q"], **extra)
+    os.replace(tmp, path)
+
+
 def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
                  gv_truth: torch.Tensor, gv_model: Optional[torch.Tensor],
                  seed: int = 0, region_block: int = 0, chunk: int = 64,
-                 verbose: bool = False) -> HybridModel:
+                 verbose: bool = False,
+                 checkpoint_dir: Optional[str] = None,
+                 also_ml: bool = False) -> HybridModel:
     """Train all regions' readouts by blocked normal-equation accumulation.
 
     gv_truth: (T, gv_len) transformed truth series, on the training device.
@@ -236,10 +280,31 @@ def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
               (hybrid) or None (ml_only).
     region_block: regions trained per pass (0 = all at once); the
     (Rb, na, na) normal equations and their f64 solve bound it.
+    checkpoint_dir: if set, each finished region block is written there as
+    `block_{bi:04d}.npz`, atomically, in the JAX package's format, and a
+    block found there is loaded instead of trained. Generation and noise
+    are pure functions of (seed, block), so a resumed run gives the
+    uninterrupted run's model bitwise, and a JAX block directory gives the
+    JAX weights.
+    also_ml: also solve the ML-ONLY readout from the same normal equations.
+    The augmented vector is [model; nodes], so the ML-only system
+    (fit_chunk_ml, mod_reservoir.f90:1491-1535) is the trailing (n, n)
+    sub-block of the hybrid's: one more f64 Cholesky per block, no second
+    training pass. The readout is kept in `HybridModel.wout_ml` on the
+    training device (3.6 GB in f32 at reference width); `ml_variant(hm)`
+    serves it. An also_ml run that finds a block checkpoint without it
+    trains that block again.
+
+    The JAX package's `upload_dtype` (float16 host uploads) and
+    `solver="device"` (emulated f64) are workarounds for a TPU behind a slow
+    link and are not ported: the series is on the device already, and the
+    ridge system is always solved in f64 on the device.
     """
     dev = gv_truth.device
     R = layout.R
     ml_only = gv_model is None
+    if also_ml and ml_only:
+        raise ValueError("also_ml needs a hybrid training run (gv_model)")
     Tn = gv_truth.shape[0]
     discard = max(1, rcfg.discardlength // rcfg.timestep)
     if Tn <= discard + 2:
@@ -263,62 +328,107 @@ def train_hybrid(layout: RegionLayout, rcfg: ReservoirConfig,
     blocks = [np.arange(R)] if region_block in (0, R) else [
         np.arange(i, min(i + region_block, R))
         for i in range(0, R, region_block)]
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
 
     n_model = 0 if ml_only else layout.n_out
-    wout_all = None
+    solve = dict(beta_res=rcfg.beta_res, beta_model=rcfg.beta_model,
+                 prior_val=rcfg.prior_val, use_prior=rcfg.prior_val != 0.0)
+    readouts = {}                   # (R, ...) wout [and wout_ml], f32
     idx_parts, val_parts, win_parts, shifts = [], [], [], []
     t_start = time.perf_counter()
     for bi, blk in enumerate(blocks):
         Rb = len(blk)
-        params = generate_esn(seed + 17 * bi, Rb, layout.n_in, layout.n_out,
-                              n_model, m_target=rcfg.nodes_per_input,
-                              deg=rcfg.degree, sigma=rcfg.sigma,
-                              leakage=rcfg.leakage, radii=radii[blk],
-                              device=dev)
         b = torch.as_tensor(blk, device=dev)
-        u_blk = (gv_truth[:, idx[b]] - stz.in_mean[b]) / stz.in_std[b]
-        y_blk = (gv_truth[:, tidx[b]] - stz.out_mean[b]) / stz.out_std[b]
-        m_blk = None if ml_only else \
-            (gv_model[:, tidx[b]] - stz.out_mean[b]) / stz.out_std[b]
+        ck = None if not checkpoint_dir else \
+            os.path.join(checkpoint_dir, f"block_{bi:04d}.npz")
+        part = None if ck is None else _load_block(ck, also_ml, dev)
+        if part is None:
+            params = generate_esn(seed + 17 * bi, Rb, layout.n_in,
+                                  layout.n_out, n_model,
+                                  m_target=rcfg.nodes_per_input,
+                                  deg=rcfg.degree, sigma=rcfg.sigma,
+                                  leakage=rcfg.leakage, radii=radii[blk],
+                                  device=dev)
+            u_blk = (gv_truth[:, idx[b]] - stz.in_mean[b]) / stz.in_std[b]
+            y_blk = (gv_truth[:, tidx[b]] - stz.out_mean[b]) / stz.out_std[b]
+            m_blk = None if ml_only else \
+                (gv_model[:, tidx[b]] - stz.out_mean[b]) / stz.out_std[b]
 
-        x = torch.zeros((Rb, params.n), dtype=torch.float32, device=dev)
-        x = drive_discard(params, x, u_blk[:discard],
-                          noise_mag=rcfg.noise_std,
-                          generator=block_generator(dev, seed, bi, 0))
-        acc = init_normal_eq(params, layout.n_out)._replace(x=x)
-        # pairs: state after u(t) vs target(t+1), t = discard..T-2
-        acc = drive_and_accumulate(
-            params, acc, u_blk[discard:-1], y_blk[discard + 1:],
-            None if ml_only else m_blk[discard + 1:],
-            noise_mag=rcfg.noise_std,
-            generator=block_generator(dev, seed, bi, 1), chunk=chunk)
-        wout = ridge_solve(acc, n_model, rcfg.beta_res, rcfg.beta_model,
-                           prior_val=rcfg.prior_val,
-                           use_prior=rcfg.prior_val != 0.0)
-        del acc
-        if wout_all is None:
-            wout_all = torch.empty((R,) + tuple(wout.shape[1:]),
-                                   dtype=torch.float32, device=dev)
-        wout_all[b] = wout.to(torch.float32)
-        del wout
-        idx_parts.append(params.a_idx)
-        val_parts.append(params.a_val)
-        win_parts.append(params.win)
-        shifts.append(params.a_shift)
+            x = torch.zeros((Rb, params.n), dtype=torch.float32, device=dev)
+            x = drive_discard(params, x, u_blk[:discard],
+                              noise_mag=rcfg.noise_std,
+                              generator=block_generator(dev, seed, bi, 0))
+            acc = init_normal_eq(params, layout.n_out)._replace(x=x)
+            # pairs: state after u(t) vs target(t+1), t = discard..T-2
+            acc = drive_and_accumulate(
+                params, acc, u_blk[discard:-1], y_blk[discard + 1:],
+                None if ml_only else m_blk[discard + 1:],
+                noise_mag=rcfg.noise_std,
+                generator=block_generator(dev, seed, bi, 1), chunk=chunk)
+            del u_blk, y_blk, m_blk
+            part = dict(wout=ridge_solve(acc, n_model, **solve).to(
+                torch.float32), a_idx=params.a_idx, a_val=params.a_val,
+                win=params.win, a_shift=params.a_shift, q=params.q)
+            if also_ml:
+                # the ML-only system: the trailing (n, n) sub-block
+                acc_ml = acc._replace(
+                    ss_hi=acc.ss_hi[:, n_model:, n_model:],
+                    ss_lo=acc.ss_lo[:, n_model:, n_model:],
+                    sy_hi=acc.sy_hi[:, :, n_model:],
+                    sy_lo=acc.sy_lo[:, :, n_model:])
+                part["wout_ml"] = ridge_solve(acc_ml, 0, **solve).to(
+                    torch.float32)
+                del acc_ml
+            del acc
+            if ck is not None:
+                _save_block(ck, part)
+        for k in ("wout", "wout_ml") if also_ml else ("wout",):
+            if k not in readouts:
+                readouts[k] = torch.empty((R,) + tuple(part[k].shape[1:]),
+                                          dtype=torch.float32, device=dev)
+            readouts[k][b] = part[k]
+        idx_parts.append(part["a_idx"])
+        val_parts.append(part["a_val"])
+        win_parts.append(part["win"])
+        shifts.append(part["a_shift"])
+        q_nodes = part["q"]
+        del part
         if verbose:
             el = time.perf_counter() - t_start
             print(f"  train block {bi + 1}/{len(blocks)} ({Rb} regions): "
                   f"{el:.1f} s, {el / (bi + 1):.2f} s/block", flush=True)
 
-    # all blocks of one reservoir geometry share the circulant shifts
-    a_shift = shifts[0] if all(s == shifts[0] for s in shifts) else None
-    params_all = EsnParams(a_idx=torch.cat(idx_parts),
-                           a_val=torch.cat(val_parts),
-                           win=torch.cat(win_parts), wout=wout_all,
-                           node_map=params.node_map, leakage=rcfg.leakage,
-                           a_shift=a_shift)
+    a_idx = torch.cat(idx_parts)
+    # all blocks of one reservoir geometry share the circulant shifts; a
+    # resume over blocks written without them finds them in the indices
+    a_shift = shifts[0] if shifts[0] is not None and all(
+        s == shifts[0] for s in shifts) else None
+    if a_shift is None:
+        found = shifts_from_ell(to_host(a_idx))
+        a_shift = None if found is None else tuple(int(s) for s in found)
+    n_nodes = win_parts[0].shape[1]
+    params_all = EsnParams(a_idx=a_idx, a_val=torch.cat(val_parts),
+                           win=torch.cat(win_parts),
+                           wout=readouts["wout"],
+                           node_map=torch.arange(n_nodes, device=dev)
+                           // q_nodes,
+                           leakage=rcfg.leakage, a_shift=a_shift)
     return HybridModel(layout=layout, params=params_all, stz=stz, rcfg=rcfg,
-                       ml_only=ml_only)
+                       ml_only=ml_only, wout_ml=readouts.get("wout_ml"))
+
+
+def ml_variant(hm: HybridModel) -> HybridModel:
+    """The ML-ONLY model (configuration 2, mod_reservoir.f90:295-296,
+    1491-1535) of a `train_hybrid(..., also_ml=True)` run: the same
+    reservoirs and standardization, the readout restricted to the reservoir
+    block (n_model == 0). It shares the hybrid's tensors, wout_ml included,
+    on their device."""
+    if hm.wout_ml is None:
+        raise ValueError("no ML-only readout: train with also_ml=True")
+    return HybridModel(layout=hm.layout,
+                       params=dataclasses.replace(hm.params, wout=hm.wout_ml),
+                       stz=hm.stz, rcfg=hm.rcfg, ml_only=True)
 
 
 # ----------------------------------------------------------------------

@@ -42,6 +42,7 @@ import torch
 from ..core.calendar import ModelDate
 from ..core.constants import DYN, PHYS
 from ..coupler.daily import fordate, init_coupler_state
+from ..device import Download
 from ..domain.decomposition import pack_global
 from ..dynamics.core import Forcing
 from ..io.checkpoint import save_prediction
@@ -110,35 +111,6 @@ def _qsat_dev(ta, pres_norm):
                      e0 * torch.exp(c1 * (ta - t0) / (ta - t1)),
                      e0 * torch.exp(c2 * (ta - t0) / (ta - t2)))
     return 622.0 * es / (pres_norm - 0.378 * es)
-
-
-class _Download:
-    """One chunk's trajectory stacks on their way to the host. On the card
-    the copies go into pinned host buffers on a side stream, so they overlap
-    the next chunk's kernels; `arrays()` waits on the event recorded behind
-    them. On the CPU the tensors are the host arrays already."""
-
-    def __init__(self, tensors, upto: int, side_stream):
-        self.upto = upto
-        self._src = tensors          # held until the copies are done
-        self._event = None
-        if side_stream is None:
-            self._host = tensors
-            return
-        side_stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side_stream):
-            self._host = [torch.empty(t.shape, dtype=t.dtype,
-                                      pin_memory=True).copy_(
-                                          t, non_blocking=True)
-                          for t in tensors]
-            self._event = torch.cuda.Event()
-            self._event.record(side_stream)
-
-    def arrays(self):
-        if self._event is not None:
-            self._event.synchronize()
-        self._src = None
-        return [h.numpy()[:self.upto] for h in self._host]
 
 
 class ScanHybridRunner:
@@ -407,7 +379,7 @@ class ScanHybridRunner:
             summary["sst_last"] = ss[-1].copy()
             summary["steps"] += len(a)
 
-        def flush(dl: _Download):
+        def flush(dl: Download):
             a, lp, p_log, ss = dl.arrays()
             if not len(a):
                 return
@@ -477,7 +449,7 @@ class ScanHybridRunner:
                 date = date_next
                 steps_done += upto
                 if fetch:
-                    pending = _Download(
+                    pending = Download(
                         [res.atmo_st, res.logp_st, res.pr_st, res.sst_st],
                         upto, self._side)
                 if aborted:

@@ -8,21 +8,25 @@ heat fluxes summed on the way. The steps are a Python loop of eager calls.
 
 The same window drives truth-trajectory generation: a TrajectoryRunner
 carries the grid state across windows and applies the daily land/sea/ice
-coupler update.
+coupler update; a FusedDataGenerator runs the truth a day at a time beside
+the imperfect model's forecasts, for bulk training data.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.calendar import ModelDate
+from ..core.calendar import ModelDate, hours_since_epoch
 from ..coupler.anomaly import apply_sst_anomaly
-from ..coupler.daily import daily_coupler_update, init_coupler_state
-from ..dynamics.core import Dycore
+from ..coupler.daily import (daily_coupler_update, fordate,
+                             init_coupler_state)
+from ..device import Download
+from ..dynamics.core import Dycore, Forcing
 from ..model import Speedy, ice_flux
 from ..physics.driver import init_rad_carry
 from ..physics.radiation import diurnal_tisr
@@ -224,3 +228,184 @@ class TrajectoryRunner:
             self._hour = 0
             self._day_flux = None
         return self.current_sample(precip_mm=res.precip_mm)
+
+
+class FusedDataGenerator:
+    """Day-batched truth + imperfect-model training data.
+
+    Each day runs wpd = 24 // hours truth windows (full physics unless
+    truth_physics=False) and, after each, a dry-core window launched from
+    that window's START state with q clamped at 0, as collect_forecasts
+    launches from a saved truth state. The dry window's diffusion
+    corrections come from a FRESH climatological coupler carrying the day's
+    SST (the reference re-launches SPEEDY for every forecast,
+    mpires.f90:1548-1660). fordate for the truth runs once a day, at the
+    reference's cadence (fordate(1), at_gcm.f90:64-70), so this truth is not
+    TrajectoryRunner's, which refreshes it every window.
+
+    The day's windows are launched with no host sync into preallocated
+    (wpd, ...) stacks on the device. The host then reads two things, the
+    day's flux sums and its safety flag, in one copy; starts the day's
+    download into pinned host buffers on a side stream, which runs beside
+    the next day's kernels; and runs the daily coupler update and the SST
+    anomaly on the host, whose post-update SST is the day's last sample's.
+
+    sst_anom_fn(date) -> (il, ix) SST anomaly [K] (coupler.anomaly), imposed
+    after initialize() and after every daily update: the truth feels it
+    through the surface fluxes and qcorh, and the recorded SST carries it
+    into training. truth_physics=False (a dry truth) exists for parity
+    tests: full-physics windows amplify rounding through their discrete
+    triggers, so only the dry core compares tightly across implementations.
+    """
+
+    def __init__(self, speedy: Speedy, hours: int = 6,
+                 truth_physics: bool = True, sst_anom_fn=None):
+        if 24 % hours:
+            raise ValueError(f"{hours} h windows do not divide a day")
+        self.speedy = speedy
+        self.hours = hours
+        self.wpd = 24 // hours           # windows per day
+        self.sst_anom_fn = sst_anom_fn
+        self.fc_phys = SpeedyForecaster(speedy, hours=hours,
+                                        physics=truth_physics)
+        self.fc_dry = SpeedyForecaster(speedy, hours=hours, physics=False)
+        self.date: Optional[ModelDate] = None
+        self.gs: Optional[GridState] = None
+        self.cs = None
+        self._side = torch.cuda.Stream(speedy.device) \
+            if speedy.device.type == "cuda" else None
+
+    def initialize(self, year: int = 1982, month: int = 1,
+                   spinup_days: int = 10):
+        """Rest start + spin-up; the SST anomaly is imposed from the start."""
+        sp = self.speedy
+        sp.initialize(year=year, month=month)
+        if spinup_days:
+            sp.run_days(spinup_days)
+        self.date = sp.date
+        self.cs = sp.coupler
+        if self.sst_anom_fn is not None:
+            apply_sst_anomaly(self.cs, self.sst_anom_fn(self.date))
+        self.gs = extract(sp.dy, sp.state, level=0)
+
+    def _day_inputs(self):
+        """The day's boundary state, made on the host and uploaded: fordate
+        once for the truth windows (surface state and forcing), and one
+        fresh-coupler forcing per window for the dry forecasts, all of them
+        in one copy. Returns (surf, forcing, dry_forcings, sst_day)."""
+        sp = self.speedy
+        sp.coupler = self.cs
+        surf, forcing = sp.surf_forcing(self.date)
+        sst_day = np.array(self.cs.sst_am)
+        corr = []
+        d = ModelDate(self.date.iyear, self.date.imonth, self.date.iday,
+                      self.date.ihour)
+        for _ in range(self.wpd):
+            cs_w = init_coupler_state(sp.clim, d, sst_hybrid=sst_day)
+            _, tcorh, qcorh = fordate(sp.dy, sp.clim, cs_w, d)
+            corr += [tcorh, qcorh]
+            d.advance_hours(self.hours)
+        up = sp._upload(corr)
+        dry = [Forcing(tcorh=up[2 * w], qcorh=up[2 * w + 1])
+               for w in range(self.wpd)]
+        return surf, forcing, dry, sst_day
+
+    def _run_day(self, gs: GridState, surf, forcing, dry_forcings):
+        """The day's windows from grid state gs. Nothing here reads a value
+        back to the host. Returns (gs at the day's end, the stacks [atmo,
+        logp, precip, m_atmo, m_logp] (wpd, ...), the day's flux sums
+        (3, il, ix), the day's safety flag as a 0-d bool tensor)."""
+        dy = self.speedy.dy
+        cfg = dy.config
+        wpd = self.wpd
+
+        def stack(*shape):
+            return torch.empty((wpd,) + shape, dtype=dy.dtype,
+                               device=dy.device)
+
+        atmo, m_atmo = stack(4, cfg.kx, cfg.il, cfg.ix), \
+            stack(4, cfg.kx, cfg.il, cfg.ix)
+        logp, precip, m_logp = (stack(cfg.il, cfg.ix) for _ in range(3))
+        fx = safe = None
+        for w in range(wpd):
+            res = self.fc_phys.window(gs, surf, forcing)
+            dres = self.fc_dry.window(
+                gs._replace(q=torch.clamp(gs.q, min=0.0)), surf,
+                dry_forcings[w])
+            for i, f in enumerate(res.gs[:4]):
+                atmo[w, i] = f
+            for i, f in enumerate(dres.gs[:4]):
+                m_atmo[w, i] = f
+            logp[w] = res.gs.logp
+            m_logp[w] = dres.gs.logp
+            precip[w] = res.precip_mm
+            sums = torch.stack(res.flux_sums)
+            fx = sums if fx is None else fx + sums
+            ok = res.safe & dres.safe
+            safe = ok if safe is None else safe & ok
+            gs = res.gs
+        return gs, [atmo, logp, precip, m_atmo, m_logp], fx, safe
+
+    def generate(self, n_samples: int, verbose: int = 0) -> dict:
+        """n_samples 6-hourly truth samples and the aligned dry-core
+        forecasts, as host numpy: the TruthSeries fields (atmo, logp,
+        precip, sst, tisr, hours) plus m_atmo, m_logp and m_precip (all
+        zeros: the dry core has no precipitation). m_*[t] is the forecast
+        VALID at sample t, launched from t-1; index 0 is launched from the
+        pre-series state, a usable pair (collect_forecasts copies truth
+        there). verbose: log every so many days."""
+        sp = self.speedy
+        ix = sp.config.ix
+        n_days = -(-n_samples // self.wpd)
+        keys = ("atmo", "logp", "precip", "m_atmo", "m_logp")
+        out = {k: [] for k in keys + ("sst", "tisr", "hours")}
+
+        def flush(dl, sst, tisr, hours):
+            for k, a in zip(keys, dl.arrays()):
+                out[k].append(a)
+            out["sst"].append(np.stack(sst))
+            out["tisr"].append(np.stack(tisr))
+            out["hours"].append(np.asarray(hours))
+
+        pending = None
+        t0 = time.perf_counter()
+        for di in range(n_days):
+            surf, forcing, dry, sst_day = self._day_inputs()
+            self.gs, stacks, fx, safe = self._run_day(self.gs, surf,
+                                                      forcing, dry)
+            # the day's one read of the device: flux sums and flag together
+            head = torch.cat([fx.reshape(-1).double(),
+                              safe.reshape(1).double()]).cpu().numpy()
+            if not head[-1]:
+                raise RuntimeError(f"the truth trajectory tripped the safety "
+                                   f"gate on day {di}")
+            dl = Download(stacks, self.wpd, self._side)
+            if pending is not None:
+                flush(*pending)
+            # per sample: the date and TISR at each window's end; the day's
+            # last sample carries the NEW day's (post-update) SST, as in
+            # TrajectoryRunner.advance
+            sst, tisr, hours = [], [], []
+            d = self.date
+            for _ in range(self.wpd):
+                d.advance_hours(self.hours)
+                tisr.append(diurnal_tisr(d.tyear, d.ihour, sp.dy.tables.gsin,
+                                         sp.dy.tables.gcos, ix))
+                hours.append(hours_since_epoch(d.iyear, d.imonth, d.iday,
+                                               d.ihour))
+                sst.append(sst_day)
+            daily_coupler_update(sp.clim, self.cs, self.date,
+                                 *head[:-1].reshape(3, *sst_day.shape))
+            if self.sst_anom_fn is not None:
+                apply_sst_anomaly(self.cs, self.sst_anom_fn(self.date))
+            sst[-1] = np.array(self.cs.sst_am)
+            pending = (dl, sst, tisr, hours)
+            if verbose and (di + 1) % verbose == 0:
+                el = time.perf_counter() - t0
+                print(f"  day {di + 1}/{n_days} ({el:.0f} s, "
+                      f"{el / ((di + 1) * self.wpd):.2f} s/sample)",
+                      flush=True)
+        flush(*pending)
+        res = {k: np.concatenate(v)[:n_samples] for k, v in out.items()}
+        res["m_precip"] = np.zeros_like(res["precip"])
+        return res

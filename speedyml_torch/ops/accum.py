@@ -122,14 +122,18 @@ def _two_sum_(hi: torch.Tensor, lo: torch.Tensor, d: torch.Tensor) -> None:
 def accumulate_ss_plain(ss_hi: torch.Tensor, ss_lo: torch.Tensor,
                         aug: torch.Tensor, chunk: int):
     """The plain PyTorch version: per chunk, an f32 einsum then the two-sum
-    (speedyml accumulate_ss_xla applied chunk by chunk). In place."""
-    if aug.is_cuda:
-        # TF32 would round each product to ~10 mantissa bits
-        torch.backends.cuda.matmul.allow_tf32 = False
-    T = aug.shape[0]
-    for c0 in range(0, T, chunk):
-        blk = aug[c0:c0 + chunk]
-        _two_sum_(ss_hi, ss_lo, torch.einsum("tra,trb->rab", blk, blk))
+    (speedyml accumulate_ss_xla applied chunk by chunk). In place. The
+    products are taken without TF32 (which would round each to ~10 mantissa
+    bits); the caller's TF32 setting is restored on return."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        T = aug.shape[0]
+        for c0 in range(0, T, chunk):
+            blk = aug[c0:c0 + chunk]
+            _two_sum_(ss_hi, ss_lo, torch.einsum("tra,trb->rab", blk, blk))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return ss_hi, ss_lo
 
 

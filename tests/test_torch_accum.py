@@ -148,6 +148,21 @@ def test_short_series_plain(T):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("tf32", [True, False])
+def test_plain_restores_the_tf32_flag(tf32):
+    """The plain version takes its products without TF32 and hands the
+    caller's setting back, on any device."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        hi, lo = torch.zeros(1, 4, 4), torch.zeros(1, 4, 4)
+        accum.accumulate_ss_plain(hi, lo, torch.ones(3, 1, 4), 2)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        assert float(hi[0, 0, 0] + lo[0, 0, 0]) == 3.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -165,6 +180,8 @@ def cuda_device():
     (100, 1, 64, 100),      # one tile, one chunk, 4 stages
     (96, 3, 2048, 32),      # 1536 blocks: several waves over the card, so
                             # tiles start and end beside running ones
+    (64, 4, 5896, 64),      # the training pipeline's series: 64 pairs in
+                            # one chunk at reference width (fewer regions)
 ])
 def test_kernel_matches_plain(cuda_device, T, R, na, chunk):
     """The CUDA kernel against the plain version on the card, with ragged

@@ -224,3 +224,67 @@ def test_apply_sst_anomaly():
     janom.apply_sst_anomaly(b, anom)
     np.testing.assert_array_equal(a.sst_am, b.sst_am)
     assert np.abs(a.sst_am - a.sstcl_ob).max() > 0.5
+
+
+@pytest.mark.parametrize("perm,dims", [
+    ((0, 1, 2, 3), ("Timestep", "Sigma_Level", "Lat", "Lon")),
+    ((3, 1, 0, 2), ("lon", "lev", "time", "lat")),     # named, permuted
+    ((3, 2, 1, 0), ("a", "b", "c", "d")),              # by the shape alone
+])
+def test_era_orientation(perm, dims):
+    """io.era reorients a field exactly as speedyml.io.era does, and both
+    refuse an ambiguous one."""
+    from speedyml.io import era as jera
+    from speedyml_torch.io import era as tera
+    a = np.random.default_rng(3).normal(size=(5, 3, 4, 8)).astype(np.float32)
+    got = tera._to_tzyx(np.transpose(a, perm), dims)
+    np.testing.assert_array_equal(got, jera._to_tzyx(np.transpose(a, perm),
+                                                     dims))
+    np.testing.assert_array_equal(got, a)
+    for era in (jera, tera):
+        with pytest.raises(ValueError):
+            era._to_tzyx(np.zeros((8, 3, 4, 8)), ("a", "b", "c", "d"))
+
+
+def test_era_files(tmp_path):
+    """The writers of both packages give the same bytes; every reader gives
+    the same arrays from either file; the file names agree."""
+    from speedyml.io import era as jera
+    from speedyml_torch.io import era as tera
+    rng = np.random.default_rng(0)
+    T, kx, il, ix = 5, 3, 4, 8
+    atmo = rng.normal(size=(T, 4, kx, il, ix)).astype(np.float32)
+    atmo[:, 3] = np.abs(atmo[:, 3]) * 1e-2          # q in kg/kg, some > 25 g
+    logp, sst, p6hr, tisr = (rng.normal(size=(T, il, ix)).astype(np.float32)
+                             for _ in range(4))
+    for pkg in ("j", "t"):
+        d = tmp_path / pkg
+        d.mkdir()
+        era = jera if pkg == "j" else tera
+        era.write_era_year(era.era_file_name(str(d), 1990), atmo, logp,
+                           sst=sst, p6hr=p6hr)
+        era.write_tisr_year(era.tisr_file_name(str(d), 1990), tisr)
+    assert tera.era_file_name("x", 1990) == jera.era_file_name("x", 1990)
+    assert tera.tisr_file_name("x", 1990) == jera.tisr_file_name("x", 1990)
+    for name in ("era_5_y1990_regridded_mpi_fixed_var_gcc.nc",
+                 "toa_incident_solar_radiation_1990_regridded_classic4.nc"):
+        assert (tmp_path / "j" / name).read_bytes() == \
+            (tmp_path / "t" / name).read_bytes(), name
+    path = tera.era_file_name(str(tmp_path / "j"), 1990)
+    for fn in ("read_era_year", "read_model_states"):
+        got, want = getattr(tera, fn)(path), getattr(jera, fn)(path)
+        assert sorted(got) == sorted(want) == ["atmo", "logp", "p6hr", "sst"]
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(tera.read_sst_year(path),
+                                  jera.read_sst_year(path))
+    tp = tera.tisr_file_name(str(tmp_path / "t"), 1990)
+    np.testing.assert_array_equal(tera.read_tisr_year(tp),
+                                  jera.read_tisr_year(tp))
+    got = tera.read_era_range(str(tmp_path / "t"), 1990, 1990,
+                              tisr_dir=str(tmp_path / "t"))
+    want = jera.read_era_range(str(tmp_path / "t"), 1990, 1990,
+                               tisr_dir=str(tmp_path / "t"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -26,6 +26,7 @@ SLICE_MODULES = [
     "io.synthetic_boundary", "coupler.climatology", "coupler.daily", "model",
     "coupler.anomaly", "reservoir.slab", "io.checkpoint", "io.ncstream",
     "io.output", "io.weights", "hybrid.fastloop",
+    "io.era", "hybrid.era_training",
 ]
 
 _PROBE = """
@@ -131,6 +132,26 @@ _ENTRY_POINTS = {
                             "spec_div=z, spec_t=z, spec_ps=z, spec_tr=z, "
                             "date=np.array([1982, 1, 1, 0])); "
                             "load_speedy_restart(p)"),
+    "FusedDataGenerator": ("import tempfile; from speedyml_torch import "
+                           "FusedDataGenerator, ModelConfig; "
+                           "from speedyml_torch.model import Speedy; "
+                           "from speedyml_torch.io.synthetic_boundary import "
+                           "write_synthetic_boundary as w; "
+                           "FusedDataGenerator(Speedy(ModelConfig(), "
+                           "w(tempfile.mkdtemp()))).initialize(1982, 1, 0)"),
+    "train_from_era": ("import tempfile, numpy as np; from speedyml_torch "
+                       "import train_from_era, ReservoirConfig; "
+                       "from speedyml_torch.io import era; "
+                       "from speedyml_torch.domain.decomposition import "
+                       "build_layout; d = tempfile.mkdtemp(); "
+                       "L = build_layout(12, 6, 2); "
+                       "z = np.ones((40, 6, 12), np.float32); "
+                       "era.write_era_year(era.era_file_name(d, 1990), "
+                       "np.ones((40, 4, 2, 6, 12), np.float32), z, sst=z, "
+                       "p6hr=z); era.write_tisr_year(era.tisr_file_name(d, "
+                       "1990), z); print('written', flush=True); "
+                       "train_from_era(L, ReservoirConfig(discardlength=24), "
+                       "d, 1990, 1990)"),
     "init_rad_carry": ("import torch; from speedyml_torch.physics.driver "
                        "import init_rad_carry; "
                        "init_rad_carry(8, 4, 8, torch.float32)"),
