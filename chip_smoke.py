@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernel from this checkout, holds it against its plain
 PyTorch version at the shapes training gives it, then drives the port's main
-path at reference width (T30L8 grid, 1152 region reservoirs of n=5760 nodes,
-readout 1152 x 136 x 5896), twice:
+paths at reference width (T30L8 grid, 1152 region reservoirs of n=5760 nodes,
+readout 1152 x 136 x 5896):
 
   * the dry path: a dry-dycore truth series and an imperfect-model series,
     every region's readout trained through `train_hybrid` (whose normal
@@ -30,6 +30,15 @@ readout 1152 x 136 x 5896), twice:
     feedback, a forecast file and a checkpoint, one chunk under
     `torch.cuda.set_sync_debug_mode("error")`, and the per-step
     `HybridRunner` resuming the chunked loop's checkpoint for a week;
+  * the ensemble, on the full-physics path's trained model: `EnsembleHybrid`
+    with two members against two single-member steps, every output to the
+    float32 readout's rounding (dry window; full-physics window in
+    float64), then full-physics steps of 1 to 64 members (ms/step,
+    gridpoints/s, peak memory, a guard against a readout that copies wout
+    per member), the window/ESN split and bf16 grid with bf16 wout at 64;
+  * bf16 grid compute: a day of the dry core in bf16 against f32 (the JAX
+    test's bounds), `run_steps` in both, and closed-loop full-physics steps
+    with the bf16 grid, beside the f32 steps above;
   * the training pipeline, the way the model's users make a model: a
     full-physics truth with its dry-core forecasts through
     `FusedDataGenerator` (one day of it with host syncs forbidden),
@@ -38,7 +47,12 @@ readout 1152 x 136 x 5896), twice:
     (`ml_variant`) for one chunk of `ScanHybridRunner`, the series written
     as ERA-schema files, `train_from_era` on them (one step held against
     the in-memory model's), and hybrid steps of that model through
-    `HybridRunner` on an `ObservedBoundary` over the files.
+    `HybridRunner` on an `ObservedBoundary` over the files;
+  * one training block at the reference's training length (16,060 pairs of
+    random standardized series): the drive folds segment by segment, its
+    peak memory held to the accumulators plus two segments and the block's
+    to its budget plus two segments, the kernel's
+    launches counted and its time over the whole series beside its bound.
 
 Before these, the column physics on the card is held against the same code
 on the CPU (asked for explicitly) in float64.
@@ -127,9 +141,46 @@ ML_LOOPS_TOL = 1e-3
 SOLVE_BYTES_PER_ENTRY = 25
 # card against CPU, float64: of each output's largest value
 PHYSICS_TOL = 1e-10
+# the share of the free device memory a training block may budget for:
+# its (na, na) systems, one drive segment and the series training keeps on
+# the card (half, until the segment and the series were counted too)
+BLOCK_MEMORY_SHARE = 0.55
+# the ensemble on the full-physics path's trained model: members of the
+# check against single-member steps, the widths of the sweep, warm-up and
+# timed steps at each, and what the peak device memory may grow beyond E
+# times one member's working set [bytes] (a readout that copied wout per
+# member would add 3.7 GB a member)
+ENSEMBLE_CHECK = 2
+ENSEMBLE_SIZES = (1, 4, 16, 64)
+ENSEMBLE_WARM = 1
+ENSEMBLE_STEPS = 3
+ENSEMBLE_SLACK_BYTES = 2e9
+# the ensemble against single-member steps, every output, on the dry and
+# the full-physics window: the bounds of tests/test_composed.py:117-150
+# (rtol 3e-4; atmo atol 3e-4, logp and precip 1e-5, x 1e-4), the float32
+# readout's rounding. The members' reservoir states differ by a factor 2:
+# the check also holds member 0 outside them against member 1's step
+ENSEMBLE_RTOL = 3e-4
+ENSEMBLE_ATOL = dict(x=1e-4, atmo=3e-4, logp=1e-5, precip_t=1e-5)
+# bf16 grid compute: one day of the dry core from rest over the stand-in
+# orography in bf16 and in f32, held to tests/test_dynamics.py:116-141 (rms
+# and largest temperature difference [K])
+BF16_DAY_STEPS = 96
+BF16_RMS_TOL = 0.2
+BF16_MAX_TOL = 2.0
+# one training block at the reference's training length
+# (results/refscale_results.json n_train) and fold chunk
+# (scripts/reference_scale.py --chunk)
+LONG_PAIRS = 16060
+LONG_CHUNK = 256
+# what that block takes with its checks [s], for the sizing of the series
+LONG_TRAINING_SECONDS = 60.0
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
+# the card's name and power limit as nvidia-smi gives them (phase_device);
+# the lines of the ensemble, bf16-grid and long-training phases carry it
+CARD = "not read"
 
 
 def _cuda_ms(fn, reps):
@@ -157,8 +208,10 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     name = torch.cuda.get_device_name(0)
+    global CARD
+    CARD = smi.splitlines()[0]
     print(f"device: {name}")
-    print(smi.splitlines()[0])
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     return name
 
@@ -237,7 +290,10 @@ def phase_kernel(R, T, chunk, na, only_scan=False):
         k2 = _cuda_ms(run_k, reps)
         p2 = _cuda_ms(run_p, reps)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        flop = 2.0 * a.shape[0] * na * na * R
+        # aug^T aug is symmetric: the function needs one triangle,
+        # na(na+1)/2 products of 2 FLOP a step and region (the kernel
+        # computes both triangles)
+        flop = 1.0 * a.shape[0] * na * (na + 1) * R
         print(f"{name} R={R} T={a.shape[0]} chunk={chunk} na={na}: kernel "
               f"{k_ms:.3f} ms ({flop / k_ms / 1e9:.2f} TFLOP/s), plain "
               f"{p_ms:.3f} ms ({flop / p_ms / 1e9:.2f} TFLOP/s) "
@@ -436,13 +492,29 @@ def make_series(dy, fc, n_samples, seed, date0):
             torch.stack(m_logp), precip, torch.stack(sst), torch.stack(tisr))
 
 
-def region_block_for(na, free_bytes, R):
-    """Regions per training block: SOLVE_BYTES_PER_ENTRY of each (na, na)
-    system per region, in half the free memory, rounded down to a multiple
-    of 8."""
+def segment_bytes(R, na, chunk):
+    """Device bytes of one drive segment of a block of R regions: its
+    augmented states (reservoir.training.fold_segment steps) and the
+    kernel's scratch for one of its launches."""
+    from speedyml_torch.ops import accum
+    from speedyml_torch.reservoir.training import fold_segment
+    seg = fold_segment(R, na, chunk, "cuda")
+    kseg = accum.segment_steps(R, na)
+    return 4 * (seg * R * na
+                + accum._load().accum_ss_scratch_floats(kseg, R, na))
+
+
+def region_block_for(na, free_bytes, R, series_bytes=0, chunk=TRAIN_CHUNK):
+    """Regions per training block, a multiple of 8: SOLVE_BYTES_PER_ENTRY
+    of each (na, na) system per region, one drive segment (segment_bytes)
+    and the series training keeps on the card (series_bytes), in
+    BLOCK_MEMORY_SHARE of the free memory."""
     per_region = na * na * SOLVE_BYTES_PER_ENTRY
-    rb = int(0.5 * free_bytes / per_region) // 8 * 8
-    return max(1, min(R, rb))
+    rb = min(R, int(BLOCK_MEMORY_SHARE * free_bytes / per_region)) // 8 * 8
+    while rb > 8 and rb * per_region + segment_bytes(rb, na, chunk) \
+            + series_bytes > BLOCK_MEMORY_SHARE * free_bytes:
+        rb -= 8
+    return max(1, rb)
 
 
 def phase_main_path(region_block):
@@ -749,7 +821,14 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     # its observed-SST steps
     pipeline = (4 * (SPINUP_DAYS + 1) + 1.25 * (discard + 1 + PIPELINE_PAIRS)
                 + OBSERVED_STEPS) * per_window + PIPELINE_FIXED_SECONDS
-    reserve = COUPLED_STEPS * per_window + 120.0 + pipeline
+    # the ensemble (its checks, sweep, split and bf16 steps, in windows of
+    # one member: a step of 64 members took about one window, PERF.md
+    # section 5) and the bf16-grid steps; the long training block
+    ensemble = (3 * ENSEMBLE_CHECK + 2 + (len(ENSEMBLE_SIZES) + 1)
+                * (ENSEMBLE_WARM + ENSEMBLE_STEPS) + 2 * (2 * PREDICT_STEPS
+                                                          + 2)) * per_window
+    reserve = (COUPLED_STEPS * per_window + 120.0 + pipeline + ensemble
+               + LONG_TRAINING_SECONDS)
     left = TARGET_SECONDS - (time.perf_counter() - t_run0) - reserve
     pairs = FULL_PAIRS[0]
     for cand in FULL_PAIRS[1:]:
@@ -837,10 +916,427 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     torch.cuda.empty_cache()
     coupled = coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0,
                            precip_t, date)
+    del gv_truth, gv_model
+    torch.cuda.empty_cache()
+    # the ensemble and bf16 grid compute on the same model and state
+    sp16 = Speedy(ModelConfig(grid_compute="bfloat16"), bindir)
+    sp64 = Speedy(ModelConfig(dtype="float64"), bindir)
+    t0 = time.perf_counter()
+    ens = phase_ensemble(sp, sp16, sp64, hm, x0, truth.atmo[-1],
+                         truth.logp[-1], precip_t, date)
+    del sp64
+    print(f"phase ensemble: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16 = phase_bf16_grid(sp, sp16, hm, x0, truth.atmo[-1], truth.logp[-1],
+                           precip_t, date)
+    print(f"phase bf16 grid: {time.perf_counter() - t0:.1f} s")
     return dict(window_ms=statistics.median(win_ms), surf_forcing_ms=sf_ms,
                 s_per_truth_sample=t_truth / n_samples, train_s=t_train,
                 pairs=pairs, step_ms={m: r["step_ms"] for m, r in res.items()},
-                coupled=coupled)
+                coupled=coupled, ensemble=ens, bf16_grid=bf16)
+
+
+# ----------------------------------------------------------------------
+# the ensemble and bf16 grid compute, on the full-physics path's model
+# ----------------------------------------------------------------------
+def ensemble_members(x0, atmo0, logp0, precip_t0, E, seed):
+    """E members around one state: the reservoir state and the fields
+    repeated, every field but the first member's perturbed by 0.01 (seeded;
+    q kept at or above QMIN), as bench.py:350-377 builds them."""
+    import torch
+    from speedyml_torch.hybrid.experiment import QMIN
+
+    g = torch.Generator(device=x0.device).manual_seed(seed)
+    atmo = atmo0.float()[None].repeat(E, 1, 1, 1, 1)
+    atmo[1:] += 0.01 * torch.randn(atmo[1:].shape, device=x0.device,
+                                   generator=g)
+    atmo[:, 3] = torch.clamp(atmo[:, 3], min=QMIN)
+    return (x0[None].repeat(E, 1, 1), atmo,
+            logp0.float()[None].repeat(E, 1, 1),
+            precip_t0.float()[None].repeat(E, 1, 1))
+
+
+def phase_ensemble(sp, sp16, sp64, hm, x0, atmo0, logp0, precip_t0, date):
+    """EnsembleHybrid at reference width on the full-physics path's trained
+    model: E=2 against two single-member steps, every output held to
+    ENSEMBLE_RTOL and ENSEMBLE_ATOL (the dry window of sp; the full-physics
+    window of sp64, also held to the safety flags, finiteness and the
+    safety bounds); the full-physics sweep
+    over ENSEMBLE_SIZES (f32 grid, f32 wout; ms/step, gridpoints/s, peak
+    memory, held to the wout guard); at the largest E the window/ESN split
+    and the bf16-grid, bf16-wout setting. Returns the numbers."""
+    import torch
+    from speedyml_torch import EnsembleHybrid
+    from speedyml_torch.hybrid.experiment import HybridRunner
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+    from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
+    from speedyml_torch.reservoir.esn import cast_wout
+
+    cfg = sp.config
+    hours = hm.rcfg.timestep
+    fc = SpeedyForecaster(sp, hours=hours)
+    runner = HybridRunner(hm, fc)
+    sst, tisr = runner._sst(date), runner._tisr(date)
+    surf, forcing = fc._surf_forcing(date, sst)
+    out = {}
+
+    # E = 2 against two single-member steps of the port
+    members = ensemble_members(x0, atmo0, logp0, precip_t0, ENSEMBLE_CHECK,
+                               SEED + 5)
+    members[0][1] *= 0.5
+    # the full-physics window in float64, as tests/test_torch_ensemble.py
+    # checks it: in float32 its moist triggers turn a rounding difference
+    # into differences of whole fields (COUPLED_STEP1_TOL), which no bound
+    # near the readout's rounding holds and a member mix-up could hide in
+    for label, physics, sp_m in (("dry", False, sp),
+                                 ("full physics", True, sp64)):
+        fc_m = SpeedyForecaster(sp_m, hours=hours, physics=physics)
+        run_m = HybridRunner(hm, fc_m)
+        surf_m, forcing_m = fc_m._surf_forcing(date, sst)
+        xe, ae, le, pe, safe = EnsembleHybrid(hm, fc_m).step(
+            *members, sst, tisr, surf_m, forcing_m)
+        atols = ENSEMBLE_ATOL
+        names = ("x", "atmo", "logp", "precip_t")
+
+        def off(got, want, name):
+            # the largest difference over its bound
+            return float(((got - want).abs() / (
+                atols[name] + ENSEMBLE_RTOL * want.abs())).max())
+
+        worst, singles = {}, []
+        for m in range(ENSEMBLE_CHECK):
+            x, a, lp, pt = (t[m] for t in members)
+            gv = run_m.pack(a, lp, pt, sst, tisr)
+            model_gv, ok = run_m.forecast_gv(a, lp, sst, tisr, date)
+            singles.append(hm.step(x, gv, model_gv)[:4])
+            if bool(ok) != bool(safe[m]):
+                raise AssertionError(f"ensemble {label}: member {m}'s "
+                                     f"safety flag differs")
+            for name, got, want in zip(names, (xe[m], ae[m], le[m], pe[m]),
+                                       singles[m]):
+                worst[name] = max(worst.get(name, 0.0),
+                                  float((got - want).abs().max()))
+                if off(got, want, name) > 1.0:
+                    raise AssertionError(
+                        f"ensemble {label}: member {m} {name} off by "
+                        f"{float((got - want).abs().max()):.3e} (rtol "
+                        f"{ENSEMBLE_RTOL}, atol {atols[name]})")
+        # the bounds tell the members apart: member 0's outputs against
+        # member 1's single step lie outside them in every output
+        mixed = {name: off(got, want, name) for name, got, want in zip(
+            names, (xe[0], ae[0], le[0], pe[0]), singles[1])}
+        if min(mixed.values()) <= 1.0:
+            raise AssertionError(f"ensemble {label}: the bounds do not tell "
+                                 f"the members apart: {mixed}")
+        del singles
+        if physics:
+            if not (bool(safe.all()) and all(bool(torch.isfinite(t).all())
+                                             for t in (xe, ae, le, pe))):
+                raise AssertionError("ensemble full physics: unsafe or "
+                                     "non-finite members")
+            for i, name in enumerate(("t", "u", "v", "q")):
+                lo, hi = SAFE_BOUNDS[name]
+                if not (lo <= float(ae[:, i].min())
+                        and float(ae[:, i].max()) <= hi):
+                    raise AssertionError(f"ensemble {name} leaves {lo}..{hi}")
+        out[f"check_{label.replace(' ', '_')}_max_abs"] = worst
+        out[f"check_{label.replace(' ', '_')}_mixed_over_bound"] = mixed
+        print(f"ensemble E={ENSEMBLE_CHECK}, {label} window, against "
+              f"single-member steps: max |diff| " + ", ".join(
+                  f"{k} {v:.3e} (atol {atols[k]})" for k, v in worst.items())
+              + f", rtol {ENSEMBLE_RTOL}; member 0 against member 1's step "
+              f"over the bound by " + ", ".join(
+                  f"{k} {v:.3g}x" for k, v in mixed.items()))
+    del members, xe, ae, le, pe
+
+    # the sweep: full physics, f32 grid and f32 wout
+    gp = cfg.ix * cfg.il * cfg.kx
+    sweep = {}
+    eh = EnsembleHybrid(hm, fc)
+    R, n = hm.params.win.shape
+    for E in ENSEMBLE_SIZES:
+        members = ensemble_members(x0, atmo0, logp0, precip_t0, E, SEED + E)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = members
+        for _ in range(ENSEMBLE_WARM):
+            *state, safe = eh.step(*state, sst, tisr, surf, forcing)
+        ms = []
+        for _ in range(ENSEMBLE_STEPS):
+            t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t1.record()
+            *state, safe = eh.step(*state, sst, tisr, surf, forcing)
+            t2.record()
+            torch.cuda.synchronize()
+            ms.append(t1.elapsed_time(t2))
+        if not bool(safe.all()) or not all(bool(torch.isfinite(t).all())
+                                           for t in state):
+            raise AssertionError(f"ensemble E={E}: unsafe or non-finite")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = statistics.median(ms)
+        sweep[E] = dict(step_ms=step_ms, steps_ms=ms,
+                        gridpoints_per_s=E * gp / (step_ms / 1e3),
+                        peak_gib=peak / 2**30, own_bytes=peak - before)
+        print(f"ensemble E={E}: median {step_ms:.2f} ms/step "
+              f"[{' '.join(f'{t:.1f}' for t in ms)}] by CUDA events, "
+              f"{sweep[E]['gridpoints_per_s']:.4e} gridpoints/s, peak device "
+              f"memory {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.3f} "
+              f"GiB over what the run held) [{CARD}]")
+        del members, state
+        torch.cuda.empty_cache()
+    # the readout must read wout once for all members: beyond one member,
+    # the step may hold no more than E times one member's working set
+    # (measured at E=1, the window's temporaries included) plus
+    # ENSEMBLE_SLACK_BYTES; a wout copied per member adds 3.7 GB each
+    one = sweep[ENSEMBLE_SIZES[0]]["own_bytes"]
+    for E, r in sweep.items():
+        allowed = E * one + ENSEMBLE_SLACK_BYTES
+        if r["own_bytes"] > allowed:
+            raise AssertionError(f"ensemble E={E} held {r['own_bytes']:.3e} "
+                                 f"bytes, over {allowed:.3e}: is wout copied "
+                                 f"per member?")
+    Emax = ENSEMBLE_SIZES[-1]
+    print(f"ensemble memory guard: at E={Emax} the step held "
+          f"{sweep[Emax]['own_bytes'] / 1e9:.3f} GB against "
+          f"{(Emax * one + ENSEMBLE_SLACK_BYTES) / 1e9:.3f} allowed "
+          f"({one / 1e6:.1f} MB a member at E=1, + "
+          f"{ENSEMBLE_SLACK_BYTES / 1e9:.0f} GB); a wout per member would "
+          f"add {hm.params.wout.numel() * 4 / 1e9:.2f} GB each")
+
+    # the window/ESN split at the largest E (bench.py:380-449)
+    x_e, a_e, l_e, p_e = ensemble_members(x0, atmo0, logp0, precip_t0, Emax,
+                                          SEED + Emax)
+    gv, model_gv, _ = eh.forecast(a_e, l_e, p_e, sst, tisr, surf, forcing)
+    win_ms = _cuda_ms(lambda: eh.forecast(a_e, l_e, p_e, sst, tisr, surf,
+                                          forcing), ENSEMBLE_STEPS)
+    esn_ms = _cuda_ms(lambda: eh.exchange(x_e, gv, model_gv),
+                      ENSEMBLE_STEPS)
+    print(f"ensemble E={Emax} split: window + packs {win_ms:.2f} ms, ESN "
+          f"part (standardize, advance, one readout for all members, "
+          f"scatter) {esn_ms:.2f} ms, by CUDA events [{CARD}]")
+
+    # the reference ensemble's setting: bf16 grid compute, bf16 wout
+    hm16 = dataclasses.replace(hm, params=cast_wout(hm.params))
+    fc16 = SpeedyForecaster(sp16, hours=hours)
+    surf16, forcing16 = fc16._surf_forcing(date, sst)
+    eh16 = EnsembleHybrid(hm16, fc16)
+    state = (x_e, a_e, l_e, p_e)
+    *state, safe = eh16.step(*state, sst, tisr, surf16, forcing16)
+    ms16 = []
+    for _ in range(ENSEMBLE_STEPS):
+        t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1.record()
+        *state, safe = eh16.step(*state, sst, tisr, surf16, forcing16)
+        t2.record()
+        torch.cuda.synchronize()
+        ms16.append(t1.elapsed_time(t2))
+    if not bool(safe.all()) or not all(bool(torch.isfinite(t).all())
+                                       for t in state):
+        raise AssertionError("ensemble bf16: unsafe or non-finite")
+    step16 = statistics.median(ms16)
+    print(f"ensemble E={Emax}, bf16 grid + bf16 wout: median {step16:.2f} "
+          f"ms/step [{' '.join(f'{t:.1f}' for t in ms16)}], "
+          f"{Emax * gp / (step16 / 1e3):.4e} gridpoints/s [{CARD}]")
+    del hm16, state, x_e, a_e, l_e, p_e, gv, model_gv
+    torch.cuda.empty_cache()
+    for r in sweep.values():
+        del r["own_bytes"]
+    out.update(sweep=sweep, split_E=Emax, window_ms=win_ms, esn_ms=esn_ms,
+               bf16_step_ms=step16, bf16_steps_ms=ms16)
+    return out
+
+
+def phase_bf16_grid(sp, sp16, hm, x0, atmo0, logp0, precip_t0, date):
+    """bf16 grid compute: one day of the dry core from rest over the
+    stand-in orography in bf16 and in f32 (held to BF16_RMS_TOL and
+    BF16_MAX_TOL), run_steps ms/step in each, and closed-loop full-physics
+    hybrid steps with the bf16 grid (f32 and bf16 wout; closed_loop).
+    Returns the numbers."""
+    import torch
+    from speedyml_torch.dynamics.initial import rest_state
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+
+    out = {}
+    tg = {}
+    for dy in (sp16.dy, sp.dy):
+        tag = "bf16" if dy.grid_dtype is not None else "f32"
+        f = dy.zero_forcing()
+        s1 = dy.stepone(rest_state(dy), f)
+        s = dy.run_steps(s1, f, BF16_DAY_STEPS)
+        tg[tag] = dy.T.spec_to_grid(s.t[0])
+        if not bool(torch.isfinite(tg[tag]).all()):
+            raise AssertionError(f"the {tag} dry day is not finite")
+        dy.run_steps(s1, f, 2)                                   # warm-up
+        out[f"run_steps_ms_{tag}"] = _cuda_ms(
+            lambda: dy.run_steps(s1, f, 24), 1) / 24
+    d = (tg["bf16"] - tg["f32"]).double()
+    rms, mx = float(d.square().mean().sqrt()), float(d.abs().max())
+    if not (rms < BF16_RMS_TOL and mx < BF16_MAX_TOL):
+        raise AssertionError(f"bf16 dry day off f32 by rms {rms:.3f} K, max "
+                             f"{mx:.3f} K (bounds {BF16_RMS_TOL}, "
+                             f"{BF16_MAX_TOL})")
+    print(f"bf16 grid, dry day from rest ({BF16_DAY_STEPS} steps): T against "
+          f"f32 rms {rms:.4f} K, max {mx:.4f} K (bounds {BF16_RMS_TOL}, "
+          f"{BF16_MAX_TOL}); run_steps {out['run_steps_ms_bf16']:.3f} "
+          f"ms/step bf16, {out['run_steps_ms_f32']:.3f} f32, by CUDA events "
+          f"[{CARD}]")
+    out.update(dry_day_rms_k=rms, dry_day_max_k=mx)
+    fc16 = SpeedyForecaster(sp16, hours=hm.rcfg.timestep)
+    res = closed_loop("full physics, bf16 grid", hm, fc16, x0, atmo0, logp0,
+                      precip_t0, date, None, None)
+    out["step_ms"] = {"bf16_grid": res["f32"]["step_ms"],
+                      "bf16_grid_bf16_wout": res["bf16"]["step_ms"]}
+    return out
+
+
+# ----------------------------------------------------------------------
+# one training block at the reference's training length
+# ----------------------------------------------------------------------
+def phase_long_training(region_block):
+    """One training block of region_block regions over LONG_PAIRS pairs of
+    random standardized series (as scripts_torch/profile_slice.py builds
+    them), chunk LONG_CHUNK: the drive folds segment by segment, so its
+    peak device memory stays within the accumulators plus two segments, and
+    the block's (drive and solve) within its hi/lo/solver budget plus two
+    segments. Then the kernel alone over the whole series (by CUDA events,
+    beside its bound), held against the plain version over its first two
+    kernel segments, and torch.bmm for one segment's chunk products.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+    from speedyml_torch import ReservoirConfig
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.ops import accum
+    from speedyml_torch.reservoir.generate import generate_esn
+    from speedyml_torch.reservoir.training import (drive_and_accumulate,
+                                                   drive_discard,
+                                                   fold_segment,
+                                                   init_normal_eq,
+                                                   ridge_solve)
+
+    dev = torch.device("cuda")
+    L, rcfg = build_layout(), ReservoirConfig()
+    n = rcfg.nodes_per_input // L.n_in * L.n_in
+    na = L.n_out + n
+    Rb = region_block
+    discard = max(1, rcfg.discardlength // rcfg.timestep)
+    T = discard + 1 + LONG_PAIRS
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    u = torch.randn(T, Rb, L.n_in, device=dev, generator=g)
+    y = torch.randn(T, Rb, L.n_out, device=dev, generator=g)
+    m = torch.randn(T, Rb, L.n_out, device=dev, generator=g)
+    params = generate_esn(SEED, Rb, L.n_in, L.n_out, L.n_out,
+                          m_target=rcfg.nodes_per_input, deg=rcfg.degree,
+                          sigma=rcfg.sigma, leakage=rcfg.leakage,
+                          radii=np.full(Rb, 0.9), device=dev)
+    x = drive_discard(params, torch.zeros((Rb, n), device=dev), u[:discard])
+    seg = fold_segment(Rb, na, LONG_CHUNK, dev)
+    kseg = accum.segment_steps(Rb, na)
+    # the block's own memory, from its accumulators on: over the drive
+    # alone (the series' augmented states held one segment at a time), and
+    # over the drive and the solve (which sets the block's peak)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    acc = init_normal_eq(params, L.n_out)._replace(x=x)
+    acc_b = sum(t.numel() * t.element_size() for t in acc)
+    torch.cuda.reset_peak_memory_stats()
+    launches = accum.accumulate_ss_scan.launches
+    t0 = time.perf_counter()
+    acc = drive_and_accumulate(params, acc, u[discard:-1], y[discard + 1:],
+                               m[discard + 1:], chunk=LONG_CHUNK)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    drive_peak = torch.cuda.max_memory_allocated() - before
+    after = accum.accumulate_ss_scan.launches
+    n_launch = after - launches
+    t0 = time.perf_counter()
+    wout = ridge_solve(acc, L.n_out, rcfg.beta_res, rcfg.beta_model)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    if not bool(torch.isfinite(wout).all()):
+        raise AssertionError("long training: the readout is not finite")
+    pairs = LONG_PAIRS // LONG_CHUNK * LONG_CHUNK
+    # each drive segment is one call of the kernel's wrapper, one launch per
+    # kernel segment of it (one call over the whole series, where seg is a
+    # multiple of kseg)
+    want_launches = pairs // seg * -(-seg // kseg) + -(-(pairs % seg) // kseg)
+    if n_launch != want_launches:
+        raise AssertionError(f"long training: {n_launch} launches counted, "
+                             f"{want_launches} expected")
+    seg_b = segment_bytes(Rb, na, LONG_CHUNK)
+    # the drive holds the accumulators and a segment: the whole series'
+    # augmented states would add 4 * pairs * Rb * na bytes
+    if drive_peak > acc_b + 2 * seg_b:
+        raise AssertionError(f"long training: the drive's peak "
+                             f"{drive_peak / 2**30:.2f} GiB over the "
+                             f"accumulators {acc_b / 2**30:.2f} + two "
+                             f"segments {2 * seg_b / 2**30:.2f} GiB")
+    budget = Rb * na * na * SOLVE_BYTES_PER_ENTRY
+    if peak > budget + 2 * seg_b:
+        raise AssertionError(f"long training: peak {peak / 2**30:.2f} GiB "
+                             f"over the budget {budget / 2**30:.2f} + two "
+                             f"segments {2 * seg_b / 2**30:.2f} GiB")
+    del wout, u, y, m
+    torch.cuda.empty_cache()
+
+    # the kernel alone over the whole series, into the block's hi/lo
+    aug = torch.randn(pairs, Rb, na, device=dev, generator=g)
+    accum.accumulate_ss_scan(acc.ss_hi, acc.ss_lo, aug, LONG_CHUNK)
+    k_ms = _cuda_ms(lambda: accum.accumulate_ss_scan(
+        acc.ss_hi, acc.ss_lo, aug, LONG_CHUNK), 2)
+    flop = 1.0 * pairs * na * (na + 1) * Rb   # one triangle (phase_kernel)
+    byte_ms = 1e3 * 4 * (4 * acc.ss_hi.numel() + aug.numel()) \
+        / HBM_BYTES_PER_S
+    op_ms = 1e3 * 3 * flop / TF32_FLOP_PER_S
+    # what the segments add: hi and lo read and written once per launch
+    seg_byte_ms = 1e3 * 4 * (4 * acc.ss_hi.numel() * want_launches
+                             + aug.numel()) / HBM_BYTES_PER_S
+    # torch.bmm for one kernel segment's chunk products (no fold)
+    at = aug[:kseg].permute(1, 2, 0).contiguous()
+
+    def run_l():
+        for c0 in range(0, kseg, LONG_CHUNK):
+            blk = at[:, :, c0:c0 + LONG_CHUNK]
+            torch.bmm(blk, blk.transpose(1, 2), out=acc.ss_hi)
+
+    run_l()
+    l_ms = _cuda_ms(run_l, 3)
+    del at, aug, acc
+    torch.cuda.empty_cache()
+    print(f"long training: {Rb} regions, na={na}, {discard} discard + "
+          f"{pairs} pairs folded (chunk {LONG_CHUNK}, drive segments of "
+          f"{seg}, kernel segments of {kseg}): drive + fold {drive_s:.2f} s, "
+          f"ridge solve {solve_s:.2f} s; {n_launch} kernel launches; peak "
+          f"device memory over the drive {drive_peak / 2**30:.2f} GiB "
+          f"(accumulators {acc_b / 2**30:.2f} + two segments "
+          f"{2 * seg_b / 2**30:.2f}; the whole series' augmented states "
+          f"would add {4 * pairs * Rb * na / 2**30:.2f}), over drive and "
+          f"solve {peak / 2**30:.2f} GiB (budget {budget / 2**30:.2f} + two "
+          f"segments) [{CARD}]")
+    print(f"long training kernel: R={Rb} T={pairs} na={na}: {k_ms:.2f} ms "
+          f"by CUDA events ({flop / k_ms / 1e9:.2f} TFLOP/s), bound "
+          f"{max(byte_ms, op_ms):.2f} ms (bytes {byte_ms:.2f}, operations "
+          f"{op_ms:.2f}; hi/lo re-read and re-written by each of the "
+          f"{want_launches} launches: {seg_byte_ms:.2f}); torch.bmm f32, "
+          f"product only, one segment of {kseg}: {l_ms:.3f} ms [{CARD}]")
+    # the kernel against the plain version over the first two segments
+    first = phase_kernel(Rb, 2 * kseg, LONG_CHUNK, na, only_scan=True)
+    res = first["accumulate_ss_scan"]
+    # the launches of the checks are not the path's
+    accum.accumulate_ss_scan.launches = after
+    return dict(T=pairs, R=Rb, na=na, launches=n_launch, drive_s=drive_s,
+                solve_s=solve_s, drive_peak_gib=drive_peak / 2**30,
+                accumulators_gib=acc_b / 2**30, peak_gib=peak / 2**30,
+                budget_gib=budget / 2**30, segment_gib=seg_b / 2**30,
+                ms=k_ms, bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                bound_bytes_ms=byte_ms, bound_operations_ms=op_ms,
+                segment_bytes_ms=seg_byte_ms,
+                library_ms_one_segment=l_ms,
+                checked_T=2 * kseg, max_abs_err=res["max_abs_err"],
+                plain_ms_checked_T=res["plain_ms"], ms_checked_T=res["ms"])
 
 
 # ----------------------------------------------------------------------
@@ -1449,7 +1945,12 @@ def main():
     # are (na, na); the kernel is checked and timed at that block's shapes
     L, rcfg = build_layout(), ReservoirConfig()
     na = L.n_out + rcfg.nodes_per_input // L.n_in * L.n_in
-    region_block = region_block_for(na, torch.cuda.mem_get_info()[0], L.R)
+    # the packed truth and model series of the longest path stay on the card
+    # beside the block
+    discard = max(1, rcfg.discardlength // rcfg.timestep)
+    series = 2 * 4 * L.gv_len * (discard + 1 + max(FULL_PAIRS))
+    region_block = region_block_for(na, torch.cuda.mem_get_info()[0], L.R,
+                                    series)
     kres = timed("kernel", phase_kernel, region_block, TRAIN_SAMPLES,
                  TRAIN_CHUNK, na)
     torch.cuda.empty_cache()     # hand the check's memory back for training
@@ -1479,6 +1980,8 @@ def main():
             region_block, t_run0)
         pipe, n_pipe, n_pipe_single = counted(
             "pipeline", phase_pipeline, bindir, region_block)
+    long_tr, n_long, n_long_single = counted(
+        "long training", phase_long_training, region_block)
     # the paths give the kernel other series lengths than the one timed
     # above: hold it against the plain version at each of them too
     at_len = {}
@@ -1505,17 +2008,20 @@ def main():
     # does not call it, so it is checked and timed above but listed apart
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
-                          n_dry + n_full + n_ocean + n_pipe,
+                          n_dry + n_full + n_ocean + n_pipe + n_long,
                           launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
                           launches_ocean_training=n_ocean,
                           launches_pipeline=n_pipe,
+                          launches_long_training=n_long,
+                          at_long_shape=long_tr,
                           at_dry_shape=at_dry,
                           at_full_physics_shape=at_full,
                           at_ocean_shape=coupled.pop("at_ocean_shape"),
                           at_pipeline_shape=at_pipe)],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
-                           n_dry_single + n_full_single + n_pipe_single)],
+                           n_dry_single + n_full_single + n_pipe_single
+                           + n_long_single)],
         "full_physics": full, "pipeline": pipe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -106,3 +106,21 @@ def datetime_from_hours(hours: int):
         days -= days_in_month(year, month)
         month += 1
     return year, month, days + 1, hour
+
+
+def hours_into_year(year: int, month: int, day: int, hour: int) -> int:
+    """numof_hours_into_year (mod_calendar.f90:122-168)."""
+    return hours_since_epoch(year, month, day, hour) - hours_since_epoch(
+        year, 1, 1, 0)
+
+
+def prediction_markers(start: "ModelDate", count: int,
+                       stride_hours: int) -> list:
+    """Forecast start dates spaced stride_hours apart
+    (distribute_prediction_marker, mpires.f90:928-948)."""
+    h0 = hours_since_epoch(start.iyear, start.imonth, start.iday, start.ihour)
+    out = []
+    for i in range(count):
+        y, m, d, h = datetime_from_hours(h0 + i * stride_hours)
+        out.append(ModelDate(iyear=y, imonth=m, iday=d, ihour=h))
+    return out

@@ -1,6 +1,6 @@
 """Single typed configuration for the whole framework (the port's own copy
-of `ModelConfig` and `ReservoirConfig` from speedyml/core/config.py; same
-fields, same defaults).
+of `ModelConfig`, `ReservoirConfig` and `HybridConfig` from
+speedyml/core/config.py; same fields, same defaults).
 
 Replaces the reference's three uncoordinated config mechanisms (hard-coded
 parameter blocks recompiled per experiment, sed-patched config.sh, fort.2
@@ -131,3 +131,12 @@ class ReservoirConfig:
     # acceptance gate (cpl_sea.f90:38-44) — see OceanModel.compose_sst
     slab_anom_clip: float = 6.0
     sst_variance_threshold: float = 0.2
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Top-level experiment config."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    reservoir: ReservoirConfig = dataclasses.field(
+        default_factory=ReservoirConfig)

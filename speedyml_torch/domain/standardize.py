@@ -41,6 +41,77 @@ def floor_sst_std(stz: Standardizer, layout: RegionLayout) -> Standardizer:
     return stz._replace(in_std=in_std)
 
 
+def _expand(layout: RegionLayout, m, sd, stats2d, R: int, n_in: int,
+            device) -> Standardizer:
+    """Per-element float32 vectors from the per-(region, level, var) atmo
+    stats m, sd (R, inpz, nvars) and the 2-D sections' {name: (mean, std)}
+    of (R,) each, all float64; the SST std floored at SST_STD_FLOOR."""
+    L = layout
+    f64 = torch.float64
+    npatch = L.inpy * L.inpx
+    s0, s1 = L.sizes["atmo3d"]
+    in_mean = torch.empty((R, n_in), dtype=f64, device=device)
+    in_std = torch.empty_like(in_mean)
+
+    def expand(x, n):      # (R, z, v) -> (R, z * n * v), patch index middle
+        return x[:, :, None, :].expand(-1, -1, n, -1).reshape(R, -1)
+
+    in_mean[:, s0:s1] = expand(m, npatch)
+    in_std[:, s0:s1] = expand(sd, npatch)
+    for name, (m2, sd2) in stats2d.items():
+        t0s, t1s = L.sizes[name]
+        if name == "sst":
+            sd2 = torch.clamp(sd2, min=SST_STD_FLOOR)
+        in_mean[:, t0s:t1s] = m2[:, None]
+        in_std[:, t0s:t1s] = sd2[:, None]
+
+    # output stats: the same stats restricted to the core sections (core
+    # level zz sits at input slab position zz + vert_overlap)
+    out_mean = torch.empty((R, L.n_out), dtype=f64, device=device)
+    out_std = torch.empty_like(out_mean)
+    o0, o1 = L.out_sizes["atmo3d"]
+    ncore = L.resy * L.resx
+    core = slice(L.vert_overlap, L.vert_overlap + L.kz_core)
+    out_mean[:, o0:o1] = expand(m[:, core], ncore)
+    out_std[:, o0:o1] = expand(sd[:, core], ncore)
+    for name in ("logp", "precip"):
+        if name in L.out_sizes:
+            t0s, _ = L.sizes[name]
+            u0, u1 = L.out_sizes[name]
+            out_mean[:, u0:u1] = in_mean[:, t0s:t0s + 1]
+            out_std[:, u0:u1] = in_std[:, t0s:t0s + 1]
+
+    f32 = torch.float32
+    return Standardizer(in_mean=in_mean.to(f32), in_std=in_std.to(f32),
+                        out_mean=out_mean.to(f32), out_std=out_std.to(f32))
+
+
+def _sections2d(layout: RegionLayout):
+    return [(name,) + layout.sizes[name]
+            for name in ("logp", "precip", "sst", "tisr", "ohtc")
+            if layout.sizes[name][1] > layout.sizes[name][0]]
+
+
+def compute_stats(layout: RegionLayout, inputs: torch.Tensor,
+                  eps: float = 1e-8) -> Standardizer:
+    """Per-(region, var, level) stats from a gathered input series
+    (T, R, n_in), expanded to per-element vectors, on its device: the dense
+    form of compute_stats_gv (biased std, ddof=0, in float64). Stats are
+    shared across the spatial patch within a region (the reference's
+    per-var-per-level scalars, mod_utilities.f90:934-1040)."""
+    L = layout
+    T, R, n_in = inputs.shape
+    x = inputs.to(torch.float64)
+    s0, s1 = L.sizes["atmo3d"]
+    atmo = x[:, :, s0:s1].reshape(T, R, L.inpz, L.inpy * L.inpx, L.nvars)
+    stats2d = {name: (x[:, :, t0:t1].mean(dim=(0, 2)),
+                      x[:, :, t0:t1].std(dim=(0, 2), correction=0) + eps)
+               for name, t0, t1 in _sections2d(L)}
+    return _expand(L, atmo.mean(dim=(0, 3)),
+                   atmo.std(dim=(0, 3), correction=0) + eps, stats2d, R,
+                   n_in, x.device)
+
+
 def compute_stats_gv(layout: RegionLayout, gv: torch.Tensor,
                      chunk: int = 256, eps: float = 1e-8) -> Standardizer:
     """Per-(region, var, level) stats from the PACKED series gv (T, gv_len),
@@ -58,9 +129,7 @@ def compute_stats_gv(layout: RegionLayout, gv: torch.Tensor,
     R, n_in = idx.shape
     npatch = L.inpy * L.inpx
     s0, s1 = L.sizes["atmo3d"]
-    sec2d = [(name,) + L.sizes[name]
-             for name in ("logp", "precip", "sst", "tisr", "ohtc")
-             if L.sizes[name][1] > L.sizes[name][0]]
+    sec2d = _sections2d(L)
 
     m1_a = torch.zeros((R, L.inpz, L.nvars), dtype=f64, device=dev)
     m2_a = torch.zeros_like(m1_a)
@@ -82,42 +151,13 @@ def compute_stats_gv(layout: RegionLayout, gv: torch.Tensor,
     n_a = T * npatch
     m = m1_a / n_a
     sd = torch.sqrt(torch.clamp(m2_a / n_a - m * m, min=0.0)) + eps
-
-    in_mean = torch.empty((R, n_in), dtype=f64, device=dev)
-    in_std = torch.empty_like(in_mean)
-
-    def expand(x, n):      # (R, z, v) -> (R, z * n * v), patch index middle
-        return x[:, :, None, :].expand(-1, -1, n, -1).reshape(R, -1)
-
-    in_mean[:, s0:s1] = expand(m, npatch)
-    in_std[:, s0:s1] = expand(sd, npatch)
+    stats2d = {}
     for name, t0s, t1s in sec2d:
         n2 = T * (t1s - t0s)
         m2 = m1_2d[name] / n2
-        sd2 = torch.sqrt(torch.clamp(m2_2d[name] / n2 - m2 * m2,
-                                     min=0.0)) + eps
-        if name == "sst":
-            sd2 = torch.clamp(sd2, min=SST_STD_FLOOR)
-        in_mean[:, t0s:t1s] = m2[:, None]
-        in_std[:, t0s:t1s] = sd2[:, None]
-
-    out_mean = torch.empty((R, L.n_out), dtype=f64, device=dev)
-    out_std = torch.empty_like(out_mean)
-    o0, o1 = L.out_sizes["atmo3d"]
-    ncore = L.resy * L.resx
-    core = slice(L.vert_overlap, L.vert_overlap + L.kz_core)
-    out_mean[:, o0:o1] = expand(m[:, core], ncore)
-    out_std[:, o0:o1] = expand(sd[:, core], ncore)
-    for name in ("logp", "precip"):
-        if name in L.out_sizes:
-            t0s, _ = L.sizes[name]
-            u0, u1 = L.out_sizes[name]
-            out_mean[:, u0:u1] = in_mean[:, t0s:t0s + 1]
-            out_std[:, u0:u1] = in_std[:, t0s:t0s + 1]
-
-    f32 = torch.float32
-    return Standardizer(in_mean=in_mean.to(f32), in_std=in_std.to(f32),
-                        out_mean=out_mean.to(f32), out_std=out_std.to(f32))
+        stats2d[name] = (m2, torch.sqrt(torch.clamp(
+            m2_2d[name] / n2 - m2 * m2, min=0.0)) + eps)
+    return _expand(L, m, sd, stats2d, R, n_in, dev)
 
 
 def standardize_in(stz: Standardizer, u):

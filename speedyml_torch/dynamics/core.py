@@ -44,8 +44,9 @@ class Dycore:
     def __init__(self, config: ModelConfig = ModelConfig(),
                  orog: Optional[np.ndarray] = None,
                  device: torch.device | str | None = None):
-        if getattr(config, "grid_compute", "float32") != "float32":
-            raise NotImplementedError("only float32 grid compute is ported")
+        if config.grid_compute not in ("float32", "bfloat16"):
+            raise ValueError(f"grid_compute {config.grid_compute!r}: "
+                             f"float32 or bfloat16")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = torch.float64 if config.dtype == "float64" \
@@ -69,6 +70,10 @@ class Dycore:
         self.akap = PHYS.akap
         self.rgas = PHYS.rgas
         self.sdrag = 1.0 / (DYN.tdrs * 3600.0)
+        # opt-in reduced-precision grid-space tendency compute
+        # (ModelConfig.grid_compute; tendencies.grtend); None = full
+        self.grid_dtype = (torch.bfloat16 if config.grid_compute
+                           == "bfloat16" else None)
 
         # surface geopotential: spec(grav*orog) truncated (ini_invars.f90:31-34)
         if orog is None:
@@ -207,3 +212,20 @@ class Dycore:
             return self.step(state, forcing, 0, 1, "delt")
         state, _ = self.step(state, forcing, 0, 0, "half", phys_fn)
         return self.step(state, forcing, 0, 1, "delt", phys_fn)
+
+    def make_scan_step(self, phys_fn: Optional[Callable] = None):
+        """f(state, forcing): one leapfrog step of the main loop."""
+        def f(state, forcing):
+            return self.step(state, forcing, 1, 1, "delt2", phys_fn)
+        return f
+
+    def run_steps(self, state: SpectralState, forcing: Forcing, nsteps: int,
+                  phys_fn: Optional[Callable] = None) -> SpectralState:
+        """nsteps leapfrog steps (the JAX package's lax.scan as a Python
+        loop). With phys_fn each step's extras are dropped."""
+        step_fn = self.make_scan_step(phys_fn)
+        for _ in range(nsteps):
+            state = step_fn(state, forcing)
+            if phys_fn is not None:
+                state = state[0]
+        return state

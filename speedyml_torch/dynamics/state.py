@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 
 class SpectralState(NamedTuple):
     """Leapfrog prognostic state (mod_dynvar.f90:9-33)."""
@@ -44,3 +46,15 @@ class Tendencies(NamedTuple):
     psdt: torch.Tensor
     trdt: torch.Tensor
 
+
+def zero_state(kx: int, mx: int, nx: int, ntr: int, dtype,
+               device: torch.device | str | None = None) -> SpectralState:
+    """Both leapfrog levels of every field at zero, on `device` (the card
+    unless the caller names another)."""
+    dev = resolve_device(device)
+
+    def z(*s):
+        return torch.zeros(s, dtype=dtype, device=dev)
+    return SpectralState(vor=z(2, kx, mx, 2, nx), div=z(2, kx, mx, 2, nx),
+                         t=z(2, kx, mx, 2, nx), ps=z(2, mx, 2, nx),
+                         tr=z(2, ntr, kx, mx, 2, nx))

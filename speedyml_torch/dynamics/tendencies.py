@@ -3,8 +3,10 @@ port of speedyml/dynamics/tendencies.py).
 
 `grtend` (src/dyn_grtend.f90) and `sptend` (src/dyn_sptend.f90) as batched
 functions: per-level loops become a leading kx axis, vertical loops become
-cumulative sums and stacked slices, in full precision (the reduced-precision
-grid compute of the JAX package is not ported).
+cumulative sums and stacked slices. With `Dycore.grid_dtype` set (bfloat16,
+`ModelConfig.grid_compute`) grtend's grid-space work runs in that dtype, as
+the JAX package's does; the spectral state and the transforms stay in the
+model dtype.
 
 Grid arrays are (kx, il, ix); spectral arrays (kx, mx, 2, nx).
 """
@@ -40,11 +42,27 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
     rgas = dy.rgas
     coriol = T.coriol
 
+    # opt-in reduced-precision grid compute (speedyml/dynamics/
+    # tendencies.py:70-107): the grid fields and the vertical constants are
+    # cast after the inverse transforms; what goes back to spectral space
+    # is cast to the model dtype first (JAX promotes it in the einsum)
+    gd = dy.grid_dtype
+    tref_full = tref
+    if gd is not None:
+        dhs, dhsr, fsgr, tref3, coriol = (
+            x.to(gd) for x in (dhs, dhsr, fsgr, tref3, coriol))
+
+    def to_spec_dtype(x):
+        return x.to(T.dtype)
+
     # grid converts: one batched transform per cos-scaling group
     kx = fdyn.vor.shape[0]
     ntr = fdyn.tr.shape[0]
     trf = fdyn.tr.reshape(ntr * kx, *fdyn.tr.shape[2:])
     g1 = T.spec_to_grid(torch.cat([fdyn.vor, fdyn.div, fdyn.t, trf]))
+    tg_full = g1[2 * kx:3 * kx]
+    if gd is not None:
+        g1 = g1.to(gd)
     vorg, divg, tg = g1[:kx], g1[kx:2 * kx], g1[2 * kx:3 * kx]
     trg = g1[3 * kx:].reshape(ntr, kx, *g1.shape[1:])
 
@@ -52,6 +70,8 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
     pdx_s, pdy_s = T.grad(fdyn.ps)
     g2 = T.spec_to_grid(torch.cat(
         [ucosm, vcosm, pdx_s[None], pdy_s[None]]), kcos=2)
+    if gd is not None:
+        g2 = g2.to(gd)
     ug, vg_, px, py = g2[:kx], g2[kx:2 * kx], g2[2 * kx], g2[2 * kx + 1]
 
     vorg_abs = vorg + coriol[:, None]                  # planetary vorticity
@@ -62,7 +82,7 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
     dmean = torch.sum(divg * w, dim=0)
 
     # log-ps tendency (dyn_grtend.f90:94-103)
-    psdt = T.grid_to_spec(-umean * px - vmean * py)
+    psdt = T.grid_to_spec(to_spec_dtype(-umean * px - vmean * py))
     psdt[0, :, 0] = 0.0
 
     # vertical sigma velocity (dyn_grtend.f90:105-123), interfaces
@@ -73,7 +93,11 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
         [zero_iface, -torch.cumsum(w * (puv + divg - dmean[None]), dim=0)])
     sigm = torch.cat([zero_iface, -torch.cumsum(w * puv, dim=0)])
 
-    tgg = tg - tref[:, None, None]
+    # temperature anomaly, taken before any downcast: T and tref are
+    # ~270 K, so rounding first would wipe out the anomaly's low bits
+    tgg = tg_full - tref_full[:, None, None]
+    if gd is not None:
+        tgg = tgg.to(gd)
     rpx = rgas * px
     rpy = rgas * py
 
@@ -91,7 +115,9 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
 
     # temperature tendency (dyn_grtend.f90:165-182)
     dtgg = tgg[1:] - tgg[:-1]
-    dtref = tref[1:] - tref[:-1]
+    dtref = tref_full[1:] - tref_full[:-1]
+    if gd is not None:
+        dtref = dtref.to(gd)
     iface_t = sigdt[1:-1] * dtgg + sigm[1:-1] * dtref[:, None, None]
     iface_t = torch.cat([zero_iface, iface_t, zero_iface])
     ttend = (tgg * divg
@@ -127,15 +153,16 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
                         (-ug[None] * trg).reshape(ntr * kx, *ug.shape[1:])])
     v_side = torch.cat([vtend, -vg_ * tgg,
                         (-vg_[None] * trg).reshape(ntr * kx, *vg_.shape[1:])])
-    vors, divs = T.vdspec(u_side, v_side, kcos=2)
+    vors, divs = T.vdspec(to_spec_dtype(u_side), to_spec_dtype(v_side),
+                          kcos=2)
     vordt = vors[:kx]
     divdt = divs[:kx]
     tdt_flux = divs[kx:2 * kx]
     trdt_flux = divs[2 * kx:].reshape(ntr, kx, *divs.shape[1:])
 
     ke = 0.5 * (ug * ug + vg_ * vg_)
-    s1 = T.grid_to_spec(torch.cat(
-        [ke, ttend, trtend.reshape(ntr * kx, *ttend.shape[1:])]))
+    s1 = T.grid_to_spec(to_spec_dtype(torch.cat(
+        [ke, ttend, trtend.reshape(ntr * kx, *ttend.shape[1:])])))
     divdt = divdt - T.lap(s1[:kx])
     tdt = tdt_flux + s1[kx:2 * kx]
     trdt = trdt_flux + s1[2 * kx:].reshape(ntr, kx, *s1.shape[1:])

@@ -117,9 +117,10 @@ def collect_forecasts(fc: SpeedyForecaster, truth: TruthSeries):
 
 
 def transform_and_pack(layout: RegionLayout, atmo, logp, precip, sst, tisr,
-                       eps: float) -> torch.Tensor:
+                       eps: float, ohtc=None) -> torch.Tensor:
     """Apply the reference's unit fixes and pack to (T, gv_len) float32, on
-    the tensors' device. atmo: (T, 4, kx, il, ix); the rest (T, il, ix)."""
+    the tensors' device. atmo: (T, 4, kx, il, ix); the rest (T, il, ix).
+    A section the layout has (ohtc with `use_ohtc=True`) must be given."""
     f32 = torch.float32
     T = atmo.shape[0]
     a = atmo.to(f32).clone()
@@ -131,11 +132,20 @@ def transform_and_pack(layout: RegionLayout, atmo, logp, precip, sst, tisr,
     s = layout.gv_sizes
     gv[:, s["atmo3d"][0]:s["atmo3d"][1]] = a.reshape(T, -1)
     gv[:, s["logp"][0]:s["logp"][1]] = logp.reshape(T, -1).to(f32)
-    for name, arr in (("precip", pr), ("sst", ss), ("tisr", ti)):
-        t0, t1 = s[name]
+    for name, arr in (("precip", pr), ("sst", ss), ("tisr", ti),
+                      ("ohtc", ohtc)):
+        t0, t1 = s.get(name, (0, 0))
         if t1 > t0:
-            gv[:, t0:t1] = arr.reshape(T, -1)
+            if arr is None:
+                raise ValueError(f"{name} required by layout")
+            gv[:, t0:t1] = torch.as_tensor(arr, device=atmo.device).to(
+                f32).reshape(T, -1)
     return gv
+
+
+def invert_precip(precip_t, eps: float):
+    """log(1 + P/eps) -> P [mm]."""
+    return eps * torch.expm1(torch.clamp(precip_t, min=0.0))
 
 
 def grid_to_atmo(gs: GridState) -> torch.Tensor:
@@ -509,7 +519,7 @@ class HybridRunner:
             precip_t = torch.clamp(precip_t - torch.as_tensor(
                 self.precip_debias, dtype=precip_t.dtype,
                 device=precip_t.device), min=0.0)
-        return self.eps * torch.expm1(torch.clamp(precip_t, min=0.0))
+        return invert_precip(precip_t, self.eps)
 
     def run(self, x, atmo0, logp0, precip_t0, date: ModelDate, n_steps: int,
             sst_fn: Optional[Callable] = None,

@@ -346,14 +346,15 @@ class FusedDataGenerator:
             gs = res.gs
         return gs, [atmo, logp, precip, m_atmo, m_logp], fx, safe
 
-    def generate(self, n_samples: int, verbose: int = 0) -> dict:
+    def generate(self, n_samples: int, verbose: int = 0, log=print) -> dict:
         """n_samples 6-hourly truth samples and the aligned dry-core
         forecasts, as host numpy: the TruthSeries fields (atmo, logp,
         precip, sst, tisr, hours) plus m_atmo, m_logp and m_precip (all
         zeros: the dry core has no precipitation). m_*[t] is the forecast
         VALID at sample t, launched from t-1; index 0 is launched from the
         pre-series state, a usable pair (collect_forecasts copies truth
-        there). verbose: log every so many days."""
+        there). verbose: a progress line every so many days, handed to
+        `log` (print by default)."""
         sp = self.speedy
         ix = sp.config.ix
         n_days = -(-n_samples // self.wpd)
@@ -402,9 +403,8 @@ class FusedDataGenerator:
             pending = (dl, sst, tisr, hours)
             if verbose and (di + 1) % verbose == 0:
                 el = time.perf_counter() - t0
-                print(f"  day {di + 1}/{n_days} ({el:.0f} s, "
-                      f"{el / ((di + 1) * self.wpd):.2f} s/sample)",
-                      flush=True)
+                log(f"  day {di + 1}/{n_days} ({el:.0f}s, "
+                    f"{el / ((di + 1) * self.wpd):.2f}s/sample)")
         flush(*pending)
         res = {k: np.concatenate(v)[:n_samples] for k, v in out.items()}
         res["m_precip"] = np.zeros_like(res["precip"])

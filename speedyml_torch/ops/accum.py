@@ -12,7 +12,8 @@ fold at split TF32 precision) serves both wrappers:
 Both update `ss_hi`/`ss_lo` IN PLACE and return them. A CUDA tensor always
 goes through the kernel (or raises); a CPU tensor goes through the plain
 PyTorch version beside it, `accumulate_ss_plain`. Each wrapper counts its
-kernel launches in its `launches` attribute.
+kernel launches in its `launches` attribute: one per segment of
+`segment_steps` time steps, each a launch of the pre-pass and of the fold.
 
 On the card the fold is taken every 32 time steps whatever `chunk` says:
 two-sum keeps each addition's rounding error exactly, so finer folds lose
@@ -154,7 +155,17 @@ def _check(ss_hi, ss_lo, aug, chunk):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
-def _launch(ss_hi, ss_lo, aug):
+def segment_steps(R: int, na: int) -> int:
+    """Time steps the kernel folds per launch at (R, na), a multiple of its
+    32-step stage: the scratch budget and the pre-pass grid bound it (448 at
+    R=48, na=5896). A longer series goes through in launches of this many
+    steps."""
+    per_block = _load().accum_ss_scratch_floats(_DEPTH, R, na) * 4
+    return max(1, min(SCRATCH_BYTES // per_block, _MAX_GRID_YZ)) * _DEPTH
+
+
+def _launch(ss_hi, ss_lo, aug) -> int:
+    """The kernel over aug, one launch per segment; returns the launches."""
     T, R, na = aug.shape
     if aug.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {aug.device}")
@@ -163,11 +174,9 @@ def _launch(ss_hi, ss_lo, aug):
     if R > _MAX_GRID_YZ or (na + 63) // 64 > _MAX_GRID_YZ:
         raise ValueError(f"R={R}, na={na} exceed the launch grid")
     if T == 0:
-        return False
+        return 0
     lib = _load()
-    # time steps per segment: the scratch budget and the pre-pass grid
-    per_block = lib.accum_ss_scratch_floats(_DEPTH, R, na) * 4
-    seg = max(1, min(SCRATCH_BYTES // per_block, _MAX_GRID_YZ)) * _DEPTH
+    seg = segment_steps(R, na)
     planes = torch.empty(lib.accum_ss_scratch_floats(min(seg, T), R, na),
                          dtype=torch.float32, device=aug.device)
     stream = torch.cuda.current_stream(aug.device).cuda_stream
@@ -181,7 +190,7 @@ def _launch(ss_hi, ss_lo, aug):
         if err != 0:
             raise RuntimeError("accum_ss kernel launch failed: "
                                + lib.accum_error_string(err).decode())
-    return True
+    return -(-T // seg)
 
 
 def accumulate_ss_scan(ss_hi: torch.Tensor, ss_lo: torch.Tensor,
@@ -196,8 +205,7 @@ def accumulate_ss_scan(ss_hi: torch.Tensor, ss_lo: torch.Tensor,
     _check(ss_hi, ss_lo, aug, chunk)
     if aug.device.type == "cpu":
         return accumulate_ss_plain(ss_hi, ss_lo, aug, chunk)
-    if _launch(ss_hi, ss_lo, aug):
-        accumulate_ss_scan.launches += 1
+    accumulate_ss_scan.launches += _launch(ss_hi, ss_lo, aug)
     return ss_hi, ss_lo
 
 
@@ -208,8 +216,7 @@ def accumulate_ss(ss_hi: torch.Tensor, ss_lo: torch.Tensor,
     chunk = max(aug.shape[0], 1)
     if aug.device.type == "cpu":
         return accumulate_ss_plain(ss_hi, ss_lo, aug, chunk)
-    if _launch(ss_hi, ss_lo, aug):
-        accumulate_ss.launches += 1
+    accumulate_ss.launches += _launch(ss_hi, ss_lo, aug)
     return ss_hi, ss_lo
 
 

@@ -61,19 +61,20 @@ class EsnParams:
 def spmv_ell(a_idx, a_val, x, a_shift=None):
     """Batched ELL sparse matvec: y[r, i] = sum_d val[r,i,d] * x[r, idx[r,i,d]].
 
-    x: (R, n) -> (R, n). With a_shift (deg host ints; idx[r,i,d] =
-    (i + s_d) mod n) the gather becomes deg contiguous shifted slices.
+    x: (..., R, n) -> (..., R, n); leading axes (ensemble members) share the
+    matrices. With a_shift (deg host ints; idx[r,i,d] = (i + s_d) mod n)
+    the gather becomes deg contiguous shifted slices.
     """
     R, n, deg = a_idx.shape
     if a_shift is not None:
-        xx = torch.cat([x, x], dim=-1)                 # (R, 2n) wraparound
+        xx = torch.cat([x, x], dim=-1)             # (..., R, 2n) wraparound
         y = None
         for d, s in enumerate(a_shift):
-            t = a_val[:, :, d] * xx[:, s:s + n]
+            t = a_val[:, :, d] * xx[..., s:s + n]
             y = t if y is None else y + t
         return y
-    gathered = torch.gather(x, 1, a_idx.reshape(R, n * deg)).reshape(R, n,
-                                                                     deg)
+    idx = a_idx.reshape(R, n * deg).expand(*x.shape[:-1], n * deg)
+    gathered = torch.gather(x, -1, idx).reshape(*x.shape[:-1], n, deg)
     return torch.sum(a_val * gathered, dim=-1)
 
 
@@ -120,17 +121,26 @@ def readout(params: EsnParams, x, model_vec=None):
 
 def _wout_matvec(w, v):
     """w (R, n_out, k) @ v (R, k) -> (R, n_out). A bf16 w takes v rounded to
-    bf16 and sums in f32 (see readout)."""
+    bf16 and sums in f32 (see readout). v (E, R, k), E ensemble members,
+    gives (E, R, n_out) from ONE product (R, n_out, k) x (R, k, E): the
+    weights are read once for all members."""
+    if v.dim() == 3:
+        return _wout_bmm(w, v.permute(1, 2, 0)).permute(2, 0, 1)
+    return _wout_bmm(w, v[..., None])[..., 0]
+
+
+def _wout_bmm(w, v):
+    """w (R, n_out, k) @ v (R, k, m) -> (R, n_out, m), as _wout_matvec."""
     if w.dtype == torch.bfloat16:
-        v16 = v.to(torch.bfloat16)[..., None]
+        v16 = v.to(torch.bfloat16)
         if w.is_cuda:
             # cuBLAS reads the bf16 weights as they are and writes f32
-            return torch.bmm(w, v16, out_dtype=torch.float32)[..., 0]
+            return torch.bmm(w, v16, out_dtype=torch.float32)
         # the CPU has no bf16 x bf16 -> f32 bmm; the f32 products of bf16
         # values are exact, so this is the same sum
-        return torch.bmm(w.float(), v16.float())[..., 0]
+        return torch.bmm(w.float(), v16.float())
     dt = torch.promote_types(w.dtype, v.dtype)
-    return torch.bmm(w.to(dt), v.to(dt)[..., None])[..., 0]
+    return torch.bmm(w.to(dt), v.to(dt))
 
 
 def readout_split(params: EsnParams, x, model_vec):

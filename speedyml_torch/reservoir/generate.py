@@ -86,6 +86,25 @@ def shifts_from_ell(a_idx: np.ndarray):
     return None
 
 
+def spectral_radius_ell(idx: np.ndarray, val: np.ndarray,
+                        iters: int = 200, seed: int = 0) -> np.ndarray:
+    """Largest |eigenvalue| per batched ELL matrix via power iteration.
+
+    Returns (R,) radii. Vectorized over the batch in numpy.
+    """
+    R, n, deg = idx.shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(R, n))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    lam = np.ones(R)
+    ridx = np.arange(R)[:, None, None]
+    for _ in range(iters):
+        y = (val * x[ridx, idx]).sum(axis=-1)
+        lam = np.linalg.norm(y, axis=1)
+        x = y / np.maximum(lam[:, None], 1e-30)
+    return lam
+
+
 def radius_by_lat(lat_min_deg: np.ndarray, lat_max_deg: np.ndarray,
                   highest_lat: float = 45.0, max_radius: float = 0.7,
                   min_radius: float = 0.3) -> np.ndarray:

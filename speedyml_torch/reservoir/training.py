@@ -1,12 +1,14 @@
 """Ridge-regression training of the batched reservoirs (PyTorch port of
 speedyml/reservoir/training.py).
 
-  * The reservoir runs over the training series in a Python loop and its
-    augmented states [model; x~] are collected for the whole series; the
-    normal equations `ss += aug^T aug` are then folded in with ONE launch of
-    the compensated-accumulation kernel (ops/accum.py), chunk by chunk, into
-    an (hi, lo) f32 pair per entry (~2^-48 effective precision from f32
-    arithmetic). The small `sy += target^T aug` fold stays a plain einsum.
+  * The reservoir runs over the training series in a Python loop, one
+    segment of whole chunks at a time (fold_segment: the kernel's own
+    segment on the card); each segment's augmented states [model; x~] are
+    folded into the normal equations `ss += aug^T aug` by the
+    compensated-accumulation kernel (ops/accum.py), chunk by chunk, into an
+    (hi, lo) f32 pair per entry (~2^-48 effective precision from f32
+    arithmetic), so memory does not grow with the series. The small
+    `sy += target^T aug` fold stays a plain einsum.
   * Multiplicative Gaussian input noise (mod_utilities.f90:1387-1410) comes
     from a torch.Generator.
   * The ridge system is assembled and solved in float64 on the tensors'
@@ -15,11 +17,13 @@ speedyml/reservoir/training.py).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.accum import _two_sum_, accumulate_ss_scan
+from ..ops.accum import (SCRATCH_BYTES, _two_sum_, accumulate_ss_scan,
+                         segment_steps)
 from .esn import EsnParams, advance, nonlinear_state
 
 
@@ -58,6 +62,26 @@ def _add_noise(inputs, noise_mag: float, generator: torch.Generator):
     return inputs + noise * noise_mag * inputs
 
 
+def fold_segment(R: int, na: int, chunk: int, device) -> int:
+    """Time steps driven and folded at a time by drive_and_accumulate: a
+    multiple of `chunk` and of the kernel's 32-step stage. On the card it is
+    the kernel's own segment (ops.accum.segment_steps) where that is a
+    multiple of chunk, so that the segmented fold issues the launches of one
+    call over the whole series; else the least multiple of both, or, where
+    that passes four kernel segments, the most steps of lcm(chunk, 32) that
+    one kernel segment holds. Elsewhere: the steps of aug that SCRATCH_BYTES
+    holds, in whole chunks."""
+    if torch.device(device).type == "cuda":
+        kseg = segment_steps(R, na)
+        both = math.lcm(kseg, chunk)
+        if both <= 4 * kseg:
+            return both
+        base = math.lcm(chunk, 32)
+        return max(base, kseg // base * base)
+    steps = SCRATCH_BYTES // (4 * R * na)
+    return max(chunk, steps // chunk * chunk)
+
+
 def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
                          model_states=None, noise_mag: float = 0.0,
                          generator: Optional[torch.Generator] = None,
@@ -68,7 +92,9 @@ def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
     targets: (T, R, n_out) truth at t+1 (already shifted by the caller)
     model_states: (T, R, n_model) imperfect-model forecast valid at t+1
     noise_mag: multiplicative input noise magnitude (training only)
-    chunk: timesteps per fold; T is truncated to a multiple of chunk.
+    chunk: timesteps per fold; T is truncated to a multiple of chunk. The
+    series is driven and folded one fold_segment of whole chunks at a time,
+    so memory does not grow with T.
 
     The (state-after-u(t), target(t+1)) pairing matches the reference's
     chunked layer (mod_reservoir.f90:1004-1065). acc's four accumulators
@@ -91,23 +117,28 @@ def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
         raise ValueError(f"no training data: T={T} < chunk={chunk}")
     Tc = nchunks * chunk
 
-    # the augmented-state series [model; x~] for the whole series
     n_model = 0 if model_states is None else model_states.shape[-1]
     R = acc.x.shape[0]
     na = n_model + params.n
-    aug = torch.empty((Tc, R, na), dtype=dt, device=acc.x.device)
-    if model_states is not None:
-        aug[:, :, :n_model] = model_states[:Tc]
+    segment = fold_segment(R, na, chunk, acc.x.device)
+    # the augmented states [model; x~] of one segment at a time
+    buf = torch.empty((min(segment, Tc), R, na), dtype=dt,
+                      device=acc.x.device)
     x = acc.x
-    for t in range(Tc):
-        x = advance(params, x, inputs[t])
-        aug[t, :, n_model:] = nonlinear_state(x)
-
-    for c0 in range(0, Tc, chunk):
-        sy_d = torch.einsum("tro,tra->roa", targets[c0:c0 + chunk],
-                            aug[c0:c0 + chunk])
-        _two_sum_(acc.sy_hi, acc.sy_lo, sy_d)
-    accumulate_ss_scan(acc.ss_hi, acc.ss_lo, aug, chunk)
+    for s0 in range(0, Tc, segment):
+        s1 = min(s0 + segment, Tc)
+        aug = buf[:s1 - s0]
+        if model_states is not None:
+            aug[:, :, :n_model] = model_states[s0:s1]
+        for t in range(s0, s1):
+            x = advance(params, x, inputs[t])
+            aug[t - s0, :, n_model:] = nonlinear_state(x)
+        for c0 in range(0, s1 - s0, chunk):
+            sy_d = torch.einsum("tro,tra->roa",
+                                targets[s0 + c0:s0 + c0 + chunk],
+                                aug[c0:c0 + chunk])
+            _two_sum_(acc.sy_hi, acc.sy_lo, sy_d)
+        accumulate_ss_scan(acc.ss_hi, acc.ss_lo, aug, chunk)
     return acc._replace(x=x)
 
 

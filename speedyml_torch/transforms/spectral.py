@@ -20,6 +20,17 @@ from ..device import resolve_device
 from .tables import SpectralTables, build_tables
 
 
+def to_real(c: np.ndarray) -> np.ndarray:
+    """complex (..., mx, nx) -> real (..., mx, 2, nx)."""
+    return np.stack([np.real(c), np.imag(c)], axis=-2)
+
+
+def to_complex(r) -> np.ndarray:
+    """real (..., mx, 2, nx) -> complex numpy (..., mx, nx)."""
+    r = np.asarray(r)
+    return r[..., 0, :] + 1j * r[..., 1, :]
+
+
 def _shift_down(x):
     """out[..., n] = x[..., n-1] (zero at n=0)."""
     return torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)

@@ -233,3 +233,35 @@ def test_kernel_matches_plain_short_series(cuda_device, T, R, na):
     torch.cuda.synchronize()
     np.testing.assert_allclose(_tot(hk, lk), _tot(hp, lp), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_launches_count_segments(cuda_device):
+    """A series longer than the kernel's segment goes through in several
+    launches, and the counter counts each: ceil(T / 448) at R=48, na=5896.
+    The result is held to the plain version in the first 8 regions at rtol
+    1e-5, with 1e-5 of the mean entry as the absolute floor for entries that
+    cancel to near zero (the rule chip_smoke.py holds the kernel to at
+    training shapes: a 936-step sum has entries of ~30 off the diagonal)."""
+    R, na, T, chunk = 48, 5896, 2 * 448 + 40, 64
+    seg = accum.segment_steps(R, na)
+    assert seg == 448
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    aug = torch.randn(T, R, na, device=cuda_device, generator=g)
+    hk = torch.zeros(R, na, na, device=cuda_device)
+    lk = torch.zeros_like(hk)
+    before = accum.accumulate_ss_scan.launches
+    accum.accumulate_ss_scan(hk, lk, aug, chunk)
+    assert accum.accumulate_ss_scan.launches == before + -(-T // seg) == \
+        before + 3
+    before = accum.accumulate_ss.launches
+    accum.accumulate_ss(hk, lk, aug)
+    assert accum.accumulate_ss.launches == before + 3
+    hp = torch.zeros(8, na, na, device=cuda_device)
+    lp = torch.zeros_like(hp)
+    accum.accumulate_ss_plain(hp, lp, aug[:, :8], chunk)
+    accum.accumulate_ss_plain(hp, lp, aug[:, :8], T)
+    torch.cuda.synchronize()
+    want = _tot(hp, lp)
+    np.testing.assert_allclose(_tot(hk[:8], lk[:8]), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).mean())

@@ -274,8 +274,13 @@ def test_unported_options_raise(bindir, option):
 
 
 def test_bf16_grid_compute_raises(bindir):
-    with pytest.raises(NotImplementedError):
-        Speedy(ModelConfig(grid_compute="bfloat16"), bindir, device=CPU)
+    """bf16 grid compute is ported (tests/test_torch_bf16.py holds it to
+    the JAX package): a Speedy builds with it; a grid dtype that neither
+    package has raises."""
+    sp = Speedy(ModelConfig(grid_compute="bfloat16"), bindir, device=CPU)
+    assert sp.dy.grid_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="grid_compute"):
+        Speedy(ModelConfig(grid_compute="float16"), bindir, device=CPU)
 
 
 def test_run_day_needs_initialize(bindir):

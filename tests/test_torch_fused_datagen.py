@@ -93,6 +93,22 @@ def test_dry_truth_against_jax(bindir):
                                atol=1e-12 * 300.0)
 
 
+def test_generate_log(bindir, capsys):
+    """generate(verbose=, log=) hands its progress lines to `log`, in the
+    JAX package's words (speedyml/hybrid/forecast.py generate), one every
+    `verbose` days, and nothing reaches stdout."""
+    import re
+    tm = Speedy(ModelConfig(), bindir, device=CPU)
+    gen = FusedDataGenerator(tm, hours=6, truth_physics=False)
+    gen.initialize(1982, 1, spinup_days=0)
+    lines = []
+    res = gen.generate(4, verbose=1, log=lines.append)
+    assert res["atmo"].shape[0] == 4 and len(lines) == 1
+    assert re.fullmatch(r"  day 1/1 \(\d+s, \d+\.\d\ds/sample\)",
+                        lines[0]), lines
+    assert capsys.readouterr().out == ""
+
+
 def test_full_physics_structure(bindir):
     """Five samples (a second day, trimmed) with the full-physics truth:
     shapes, finite fields inside the safety bounds, 6-hourly dates, rain in

@@ -26,7 +26,7 @@ SLICE_MODULES = [
     "io.synthetic_boundary", "coupler.climatology", "coupler.daily", "model",
     "coupler.anomaly", "reservoir.slab", "io.checkpoint", "io.ncstream",
     "io.output", "io.weights", "hybrid.fastloop",
-    "io.era", "hybrid.era_training",
+    "io.era", "hybrid.era_training", "hybrid.ensemble", "utils.diag",
 ]
 
 _PROBE = """
@@ -155,6 +155,9 @@ _ENTRY_POINTS = {
     "init_rad_carry": ("import torch; from speedyml_torch.physics.driver "
                        "import init_rad_carry; "
                        "init_rad_carry(8, 4, 8, torch.float32)"),
+    "zero_state": ("import torch; from speedyml_torch.dynamics.state "
+                   "import zero_state; zero_state(8, 31, 32, 1, "
+                   "torch.float32)"),
 }
 
 

@@ -26,6 +26,7 @@ from speedyml.hybrid.experiment import transform_and_pack
 from speedyml.reservoir import slab as jslab
 from speedyml_torch import convert
 from speedyml_torch.coupler import climatology as tclim
+from speedyml_torch.hybrid import experiment as texp
 from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
 from speedyml_torch.reservoir import slab as tslab
 from speedyml_torch.transforms.tables import build_tables
@@ -272,3 +273,45 @@ def test_train_ocean(trained, tmp_path):
 
     with pytest.raises(ValueError):
         tslab.train_ocean(Lt, rt, to_cpu(gv[:16]), seed=5)
+
+
+def test_ocean_with_ohtc():
+    """tests/test_slab.py test_ocean_with_ohtc against the JAX package: the
+    OHTC channel packed bitwise as the JAX transform_and_pack packs it (a
+    layout section without its array raises), and the ocean trained on it
+    held to the JAX one as test_train_ocean holds it."""
+    L = jax_build_layout(ix=12, il=6, kx=2, nvars=4, resx=2, resy=2,
+                         overlap=1, use_ohtc=True)
+    Lt = convert.region_layout(L)
+    rcfg = _ocean_rcfg()
+    T = 600
+    atmo, logp, precip, sst, tisr = _synthetic_truth(L, T, seed=41)
+    ohtc = 1.5e9 + 1e8 * np.sin(
+        np.linspace(0, 20, T)[:, None, None]
+        + np.linspace(0, 3, L.il)[None, :, None])
+    ohtc = np.broadcast_to(ohtc, (T, L.il, L.ix))
+    eps = rcfg.precip_epsilon
+    gv = transform_and_pack(L, atmo, logp, precip, sst, tisr, eps, ohtc=ohtc)
+    fields = [to_cpu(a) for a in (atmo, logp, precip, sst, tisr)]
+    gvt = texp.transform_and_pack(Lt, *fields, eps, ohtc=to_cpu(ohtc))
+    assert gvt.dtype == torch.float32
+    np.testing.assert_array_equal(gvt.numpy(), gv)
+    with pytest.raises(ValueError, match="ohtc"):
+        texp.transform_and_pack(Lt, *fields, eps)
+
+    rt = convert.reservoir_config(rcfg)
+    om_j = jslab.train_ocean(L, rcfg, gv, seed=8)
+    om_t = tslab.train_ocean(Lt, rt, gvt, seed=8)
+    ncore = L.resy * L.resx
+    assert om_t.ol.n_out == om_j.ol.n_out == 2 * ncore
+    assert om_t.ol.sections == om_j.ol.sections
+    np.testing.assert_array_equal(om_t.active, om_j.active)
+    gv_w = jslab.weekly_ocean_inputs(gv, om_j.steps_per_week, L)
+    pj = _one_week_prediction(om_j, gv_w)
+    pt = _one_week_prediction(om_t, gv_w)
+    assert np.isfinite(pt).all()
+    # ohtc predictions come back in physical units (~1.5e9)
+    assert 1e9 < np.abs(pt[:, ncore:]).mean() < 2e9
+    for sl in (slice(0, ncore), slice(ncore, None)):
+        np.testing.assert_allclose(pt[:, sl], pj[:, sl], rtol=0,
+                                   atol=5e-3 * np.ptp(pj[:, sl]))

@@ -95,6 +95,44 @@ def test_drive_and_accumulate(driven):
                                rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("noise_mag", [0.0, 0.1])
+def test_segmented_fold_bitwise(driven, noise_mag, monkeypatch):
+    """Driven and folded two chunks at a time, the series gives the
+    one-segment result bitwise: the plain fold goes chunk by chunk, and a
+    segment of whole chunks changes no chunk (the noise is drawn for the
+    whole series first, so it is the same too). Without noise it is held to
+    the JAX drive_and_accumulate as test_drive_and_accumulate holds it."""
+    _, accj, _ = driven
+    rng = np.random.default_rng(3)
+    jp = jax_generate_esn(1, R=3, n_in=8, n_out=4, n_model=4, m_target=16,
+                          deg=3)
+    tp = convert.esn_params(jp, CPU)
+    u, y, m = (to_cpu(rng.normal(size=(40, 3, k)).astype(np.float32))
+               for k in (8, 4, 4))
+    x = ttr.drive_discard(tp, torch.zeros((3, tp.n)), u[:6])
+    na = 4 + tp.n
+    assert ttr.fold_segment(3, na, 8, CPU) >= 34   # one segment by default
+    res = []
+    for segmented in (False, True):
+        if segmented:
+            monkeypatch.setattr(ttr, "fold_segment", lambda *a: 16)
+        acc = ttr.init_normal_eq(tp, 4)._replace(x=x)
+        res.append(ttr.drive_and_accumulate(
+            tp, acc, u[6:], y[6:], m[6:], noise_mag=noise_mag,
+            generator=torch.Generator().manual_seed(4), chunk=8))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    if noise_mag == 0.0:
+        np.testing.assert_allclose(_tot(res[1].ss_hi, res[1].ss_lo),
+                                   _tot(accj.ss_hi, accj.ss_lo),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(_tot(res[1].sy_hi, res[1].sy_lo),
+                                   _tot(accj.sy_hi, accj.sy_lo),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(res[1].x.numpy(), np.asarray(accj.x),
+                                   rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("prior_val", [0.0, 0.5])
 def test_ridge_solve(driven, prior_val):
     _, accj, _ = driven
@@ -211,3 +249,41 @@ def test_drive_and_accumulate_through_kernel(driven):
                                atol=1e-4)
     np.testing.assert_allclose(acc.x.cpu().numpy(), acct.x.numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_segmented_fold_on_the_card(cuda_device, monkeypatch):
+    """On the card the segmented drive folds through the kernel one segment
+    at a time, with the launches and the result (bitwise) of one call over
+    the whole series: at R=48, na=5896 a segment is the kernel's own 448
+    steps, and 1000 pairs are 3 launches."""
+    from speedyml_torch.ops import accum
+    from speedyml_torch.reservoir.generate import generate_esn
+
+    R, n_in, n_out, T = 48, 16, 136, 1000
+    tp = generate_esn(1, R, n_in, n_out, n_out, m_target=5760, deg=3,
+                      radii=np.full(R, 0.9), device=cuda_device)
+    na = n_out + tp.n
+    assert na == 5896 and accum.segment_steps(R, na) == 448
+    assert ttr.fold_segment(R, na, 64, cuda_device) == 448
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u, y, m = (torch.randn(T, R, k, device=cuda_device, generator=g)
+               for k in (n_in, n_out, n_out))
+    res = []
+    for whole in (False, True):
+        if whole:   # one segment over the whole series
+            monkeypatch.setattr(ttr, "fold_segment", lambda *a: 960)
+        acc = ttr.init_normal_eq(tp, n_out)
+        before = accum.accumulate_ss_scan.launches
+        res.append(ttr.drive_and_accumulate(tp, acc, u, y, m, chunk=64))
+        assert accum.accumulate_ss_scan.launches == before + 3
+        del acc
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
