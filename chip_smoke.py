@@ -39,23 +39,36 @@ readout 1152 x 136 x 5896):
   * bf16 grid compute: a day of the dry core in bf16 against f32 (the JAX
     test's bounds), `run_steps` in both, and closed-loop full-physics steps
     with the bf16 grid, beside the f32 steps above;
-  * the training pipeline, the way the model's users make a model: a
-    full-physics truth with its dry-core forecasts through
-    `FusedDataGenerator` (one day of it with host syncs forbidden),
-    `train_hybrid(also_ml=True)` over all regions with block checkpoints,
-    a resume after deleting blocks (bitwise), the ML-only model
-    (`ml_variant`) for one chunk of `ScanHybridRunner`, the series written
-    as ERA-schema files, `train_from_era` on them (one step held against
-    the in-memory model's), and hybrid steps of that model through
-    `HybridRunner` on an `ObservedBoundary` over the files;
+  * the scripts of scripts_torch as users run them, through their
+    main(argv) at reference width on the stand-in files: reference_scale.py
+    data (with the ENSO-like anomaly), train (both readouts, block files),
+    predict, coupled --ocean-train-only and a two-week coupled run with its
+    forecast file (the kernel held against its plain version at the train
+    and ocean shapes first), then score_run, decade_table,
+    analyze_forecast, enso_eval and climate_check cache on what they
+    wrote;
+  * the training pipeline, the way the model's users make a model, on the
+    series and block files the scripts leave: one `FusedDataGenerator` day
+    with host syncs forbidden, the series checked,
+    `train_hybrid(also_ml=True)` reading the block files, a resume after
+    deleting blocks (bitwise), the ML-only model (`ml_variant`) for one
+    chunk of `ScanHybridRunner`, the series written as ERA-schema files,
+    `train_from_era` on them (one step held against the block-file
+    model's), and hybrid steps of that model through `HybridRunner` on an
+    `ObservedBoundary` over the files;
+  * the model's options: two days of the full-physics model with SPPT,
+    random diabatic forcing and time means, their GrADS file read back,
+    each mean inside the range of its samples, ms per day with and without
+    the options, and climate_check run;
   * one training block at the reference's training length (16,060 pairs of
     random standardized series): the drive folds segment by segment, its
     peak memory held to the accumulators plus two segments and the block's
     to its budget plus two segments, the kernel's
     launches counted and its time over the whole series beside its bound.
 
-Before these, the column physics on the card is held against the same code
-on the CPU (asked for explicitly) in float64.
+Before these, the column physics on the card (with the random diabatic
+forcing, and a time-mean sample) is held against the same code on the CPU
+(asked for explicitly) in float64.
 
 Every phase raises on failure, so any fault ends the run with a nonzero exit.
 The line before the last is a JSON object with one entry per kernel wrapper
@@ -82,8 +95,7 @@ TRAIN_CHUNK = 128          # time steps per normal-equation fold
 TRAIN_SAMPLES = 2 * TRAIN_CHUNK   # training pairs after the discard
 PREDICT_STEPS = 3
 N_SYNC = 40
-# the dry path's training pairs after the discard (the pipeline's length:
-# the script's run time is the smoke run's budget)
+# the dry path's training pairs after the discard
 DRY_PAIRS = 64
 # the full-physics path: days of spin-up from rest, the fewest and the most
 # training pairs, and the run time [s] the series is sized to stay under.
@@ -114,37 +126,28 @@ COUPLED_WEEK_RMS_TOL = 2.0
 # windows inside the series have run up to 1.5 times as long as the one
 # timed alone just before them (the host sets the pace, and it varies)
 WINDOW_MARGIN = 1.5
-# the training pipeline: pairs after the discard of its generated series,
-# steps of the ML-only loop (one chunk), hybrid steps on the observed SST,
-# the year its ERA-schema files are written for, the file-trained hybrid's
-# step against the in-memory one's (of each field's range: the trained
-# readouts differ as the float32 normal equations of slightly different q
-# series round, PERF.md section 6 and tests/test_torch_training.py), and
-# what the phase spends outside its windows [s]: two trainings with also_ml
-# and their block files, the resume, train_from_era, the kernel check
-PIPELINE_PAIRS = 64
+# the training pipeline, on the series and block files of the scripts
+# phase: steps of the ML-only loop (one chunk), hybrid steps on the observed
+# SST, the year of the scripts' series and of the ERA-schema files (1983:
+# its days lie inside the ENSO-like anomaly's record, which starts in
+# February 1982 and ramps up over 30 days), the file-trained hybrid's step
+# against the block-file one's (of each field's range: the trained readouts
+# differ as the float32 normal equations of slightly different q series
+# round, PERF.md section 6 and tests/test_torch_training.py), and what the
+# phase spends outside its windows [s]: reading the block files, the
+# resume, train_from_era
 ML_STEPS = 28
 OBSERVED_STEPS = 3
-PIPELINE_YEAR = 1982
+PIPELINE_YEAR = 1983
 FILE_MODEL_TOL = 5e-3
-PIPELINE_FIXED_SECONDS = 150.0
+PIPELINE_FIXED_SECONDS = 80.0
 # the ML-only model through the per-step runner against the chunked loop:
 # the same float32 arithmetic on the same packed inputs, whose SST and TISR
 # reach float32 from float64 host fields on two ways (largest |difference|
 # over all fields and steps)
 ML_LOOPS_TOL = 1e-3
-# device bytes a training block holds per entry of its (na, na) systems at
-# the solve: the f32 hi/lo pair (8), the f64 system and its Cholesky factor
-# (16), and one for the solver's workspace and the block's other tensors
-# (an also_ml block of 48 regions at na=5896 peaked at 24.96 bytes an entry
-# on the H100, PERF.md section 5; 24 until then)
-SOLVE_BYTES_PER_ENTRY = 25
 # card against CPU, float64: of each output's largest value
 PHYSICS_TOL = 1e-10
-# the share of the free device memory a training block may budget for:
-# its (na, na) systems, one drive segment and the series training keeps on
-# the card (half, until the segment and the series were counted too)
-BLOCK_MEMORY_SHARE = 0.55
 # the ensemble on the full-physics path's trained model: members of the
 # check against single-member steps, the widths of the sweep, warm-up and
 # timed steps at each, and what the peak device memory may grow beyond E
@@ -175,6 +178,22 @@ LONG_PAIRS = 16060
 LONG_CHUNK = 256
 # what that block takes with its checks [s], for the sizing of the series
 LONG_TRAINING_SECONDS = 60.0
+# the scripts users run (scripts_torch), at reference width on stand-in
+# boundary files: days of spin-up of the data phase, samples held out (the
+# predict phase's steps), the ocean weeks of the training series (five:
+# train_ocean needs more than four), the coupled run's ocean weeks, the
+# decade table's "year" in steps, and what the phase takes [s], for the
+# sizing of the full-physics series
+SCRIPTS_SPINUP_DAYS = 2
+SCRIPTS_HOLDOUT = 4
+SCRIPTS_OCEAN_WEEKS = 5
+SCRIPTS_COUPLED_WEEKS = 2
+SCRIPTS_STEPS_PER_YEAR = 28
+SCRIPTS_SECONDS = 420.0
+# the model's options (SPPT, random diabatic forcing, time means): days run
+# with them, and what the phase takes [s]
+OPTIONS_DAYS = 2
+OPTIONS_SECONDS = 60.0
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
@@ -492,31 +511,6 @@ def make_series(dy, fc, n_samples, seed, date0):
             torch.stack(m_logp), precip, torch.stack(sst), torch.stack(tisr))
 
 
-def segment_bytes(R, na, chunk):
-    """Device bytes of one drive segment of a block of R regions: its
-    augmented states (reservoir.training.fold_segment steps) and the
-    kernel's scratch for one of its launches."""
-    from speedyml_torch.ops import accum
-    from speedyml_torch.reservoir.training import fold_segment
-    seg = fold_segment(R, na, chunk, "cuda")
-    kseg = accum.segment_steps(R, na)
-    return 4 * (seg * R * na
-                + accum._load().accum_ss_scratch_floats(kseg, R, na))
-
-
-def region_block_for(na, free_bytes, R, series_bytes=0, chunk=TRAIN_CHUNK):
-    """Regions per training block, a multiple of 8: SOLVE_BYTES_PER_ENTRY
-    of each (na, na) system per region, one drive segment (segment_bytes)
-    and the series training keeps on the card (series_bytes), in
-    BLOCK_MEMORY_SHARE of the free memory."""
-    per_region = na * na * SOLVE_BYTES_PER_ENTRY
-    rb = min(R, int(BLOCK_MEMORY_SHARE * free_bytes / per_region)) // 8 * 8
-    while rb > 8 and rb * per_region + segment_bytes(rb, na, chunk) \
-            + series_bytes > BLOCK_MEMORY_SHARE * free_bytes:
-        rb -= 8
-    return max(1, rb)
-
-
 def phase_main_path(region_block):
     """Truth series -> train_hybrid (all regions, region_block at a time) ->
     closed-loop dry hybrid steps in f32 and bf16 wout."""
@@ -667,13 +661,17 @@ def check_trained(hm, L, na):
 def phase_physics_card_vs_cpu(bindir):
     """The float64 model on the card and on the CPU (asked for explicitly),
     from one state spun up on the card: `step_physics` with and without the
-    shortwave step, and one physics-coupled `dy.step`. Every float output
-    within PHYSICS_TOL of its largest value, every integer output equal."""
+    shortwave step and with the random diabatic forcing, one time-mean
+    sample, and one physics-coupled `dy.step`. Every float output within
+    PHYSICS_TOL of its largest value, every integer output equal."""
+    import numpy as np
     import torch
     from speedyml_torch import ModelConfig, convert
     from speedyml_torch.dynamics.state import SpectralState
     from speedyml_torch.model import Speedy
     from speedyml_torch.physics.driver import RadCarry
+    from speedyml_torch.physics.randfor import make_randfh
+    from speedyml_torch.utils.timemean import init_timemean, tm_update
 
     cfg = ModelConfig(dtype="float64")
     card = Speedy(cfg, bindir)
@@ -736,6 +734,22 @@ def phase_physics_card_vs_cpu(bindir):
         if not 0.0 < conv < 1.0:
             raise AssertionError(f"convection active in {conv:.0%} of the "
                                  f"columns: the state does not exercise it")
+    # the random diabatic forcing and the time-mean accumulators, built on
+    # the host in float64 and handed to both
+    randfh = make_randfh(card.dy.T, np.asarray(card.dy.tables.gsin),
+                         card.config.ix, seed=card.config.rdf_index)
+    t_c, _, _ = card.phys.step_physics(
+        card.dy, card.state.at_level(0), surf_c, card.rad, True,
+        randfh=torch.as_tensor(randfh, device=card.device))
+    t_h, _, _ = host.phys.step_physics(
+        host.dy, state_h.at_level(0), surf_h, rad_h, True,
+        randfh=torch.as_tensor(randfh))
+    compare("step_physics[randfh].tend", Tends(*t_c), Tends(*t_h))
+    tm_c = tm_update(card.dy, card.st, card.state.at_level(0),
+                     init_timemean(8, 48, 96, torch.float64, card.device))
+    tm_h = tm_update(host.dy, host.st, state_h.at_level(0),
+                     init_timemean(8, 48, 96, torch.float64, "cpu"))
+    compare("tm_update", tm_c, tm_h)
     new_c, (rad_c, fx_c) = card.dy.step(
         card.state, forc_c, 1, 1, "delt2",
         card._phys_fn(surf_c, card.rad, True))
@@ -816,11 +830,9 @@ def phase_full_physics_path(bindir, region_block, t_run0):
     per_window = WINDOW_MARGIN * (statistics.median(win_ms) + sf_ms) / 1e3
     # what the phases after the series take: the coupled loop's hybrid steps,
     # the ocean's training, the model file, the closed-loop steps; then the
-    # pipeline phase: its spin-up, one day checked for host syncs, its series
-    # (a full-physics and a dry window, a quarter of the time, a sample) and
-    # its observed-SST steps
-    pipeline = (4 * (SPINUP_DAYS + 1) + 1.25 * (discard + 1 + PIPELINE_PAIRS)
-                + OBSERVED_STEPS) * per_window + PIPELINE_FIXED_SECONDS
+    # pipeline phase: one generator day checked for host syncs (four
+    # full-physics and four dry windows) and its observed-SST steps
+    pipeline = (5 + OBSERVED_STEPS) * per_window + PIPELINE_FIXED_SECONDS
     # the ensemble (its checks, sweep, split and bf16 steps, in windows of
     # one member: a step of 64 members took about one window, PERF.md
     # section 5) and the bf16-grid steps; the long training block
@@ -828,7 +840,7 @@ def phase_full_physics_path(bindir, region_block, t_run0):
                 * (ENSEMBLE_WARM + ENSEMBLE_STEPS) + 2 * (2 * PREDICT_STEPS
                                                           + 2)) * per_window
     reserve = (COUPLED_STEPS * per_window + 120.0 + pipeline + ensemble
-               + LONG_TRAINING_SECONDS)
+               + LONG_TRAINING_SECONDS + SCRIPTS_SECONDS + OPTIONS_SECONDS)
     left = TARGET_SECONDS - (time.perf_counter() - t_run0) - reserve
     pairs = FULL_PAIRS[0]
     for cand in FULL_PAIRS[1:]:
@@ -1207,6 +1219,8 @@ def phase_long_training(region_block):
     import torch
     from speedyml_torch import ReservoirConfig
     from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import (SOLVE_BYTES_PER_ENTRY,
+                                                  segment_bytes)
     from speedyml_torch.ops import accum
     from speedyml_torch.reservoir.generate import generate_esn
     from speedyml_torch.reservoir.training import (drive_and_accumulate,
@@ -1354,7 +1368,8 @@ def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
     import torch
     from speedyml_torch import (ScanHybridRunner, load_model, save_model,
                                 train_ocean)
-    from speedyml_torch.hybrid.experiment import HybridRunner
+    from speedyml_torch.hybrid.experiment import (HybridRunner,
+                                                  region_block_for)
     from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
     from speedyml_torch.io.checkpoint import load_prediction
     from speedyml_torch.io.output import ForecastWriter, read_forecast
@@ -1579,15 +1594,18 @@ def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
 # ----------------------------------------------------------------------
 # the training pipeline
 # ----------------------------------------------------------------------
-def phase_pipeline(bindir, region_block):
-    """The pipeline the model's users run to make a model: FusedDataGenerator
-    for a full-physics truth with its dry-core forecasts (one day of it with
-    host syncs forbidden first) -> train_hybrid(also_ml=True) over all
-    regions with block checkpoints -> a resume from a directory missing
-    blocks, bitwise -> ml_variant through ScanHybridRunner for one chunk ->
-    the series as ERA-schema files -> train_from_era on them, one step held
-    against the in-memory model's -> hybrid steps of the file-trained model
-    on an ObservedBoundary over the files. Returns the numbers it printed."""
+def phase_pipeline(bindir, work):
+    """The pipeline the model's users run to make a model, on what the
+    scripts phase left in `work` (its reference_scale.py cache and the train
+    phase's block files): one FusedDataGenerator day with host syncs
+    forbidden -> the cached truth and dry-core forecasts checked -> the
+    trained model read back from its block files (train_hybrid with
+    also_ml=True and the script's seed, blocks and chunk) -> a resume from
+    a directory missing blocks, bitwise -> ml_variant through
+    ScanHybridRunner for one chunk -> the series as ERA-schema files ->
+    train_from_era on them, one step held against the block-file model's
+    -> hybrid steps of the file-trained model on an ObservedBoundary over
+    the files. Returns the numbers it printed."""
     import numpy as np
     import torch
     from speedyml_torch import (FusedDataGenerator, ModelConfig, ModelDate,
@@ -1596,7 +1614,6 @@ def phase_pipeline(bindir, region_block):
                                 train_hybrid)
     from speedyml_torch.core.calendar import (datetime_from_hours,
                                               hours_since_epoch)
-    from speedyml_torch.coupler.anomaly import SyntheticEnso
     from speedyml_torch.domain.decomposition import build_layout
     from speedyml_torch.hybrid.experiment import (HybridRunner,
                                                   transform_and_pack)
@@ -1613,20 +1630,12 @@ def phase_pipeline(bindir, region_block):
     cfg = sp.config
     radang_deg = np.degrees(np.asarray(sp.dy.tables.radang))
     L = build_layout(ix=cfg.ix, il=cfg.il, kx=cfg.kx, radang_deg=radang_deg)
-    enso = SyntheticEnso(radang_deg, np.arange(cfg.ix) * 360.0 / cfg.ix,
-                         sp.clim.fmask_s,
-                         t0=(PIPELINE_YEAR, 1, 1 + SPINUP_DAYS), **ENSO)
-    gen = FusedDataGenerator(sp, hours=rcfg.timestep,
-                             sst_anom_fn=enso.sst_anom_fn)
-    t0 = time.perf_counter()
-    gen.initialize(PIPELINE_YEAR, 1, spinup_days=SPINUP_DAYS)
-    torch.cuda.synchronize()
-    print(f"pipeline: rest start + {SPINUP_DAYS} days in "
-          f"{time.perf_counter() - t0:.1f} s")
 
-    # one generator day with host syncs forbidden between its first launch
-    # and the read of its flux sums (its result is dropped: the day body
-    # changes no state of the generator)
+    # one generator day from rest with host syncs forbidden between its
+    # first launch and the read of its flux sums (its result is dropped:
+    # the day body changes no state of the generator)
+    gen = FusedDataGenerator(sp, hours=rcfg.timestep)
+    gen.initialize(PIPELINE_YEAR, 1, spinup_days=0)
     surf, forcing, dry, _ = gen._day_inputs()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1636,17 +1645,15 @@ def phase_pipeline(bindir, region_block):
         torch.cuda.set_sync_debug_mode("default")
     if not bool(day[3]):
         raise AssertionError("the sync-free generator day tripped the gate")
-    del day, surf, forcing, dry
+    del day, surf, forcing, dry, gen
     print("one generator day under set_sync_debug_mode('error'): no host "
           "sync between its first launch and the read of its flux sums")
 
-    discard = max(1, rcfg.discardlength // rcfg.timestep)
-    n_samples = discard + 1 + PIPELINE_PAIRS
-    t0 = time.perf_counter()
-    series = gen.generate(n_samples)
-    t_gen = time.perf_counter() - t0
-    out.update(samples=n_samples, generate_s=t_gen,
-               s_per_sample=t_gen / n_samples)
+    # the series reference_scale.py data generated, and its training part
+    with np.load(os.path.join(work, "cache.npz")) as z:
+        series = {k: z[k] for k in z.files}
+    n_samples = series["atmo"].shape[0]
+    n_train = n_samples - SCRIPTS_HOLDOUT
     shape = (n_samples, 4, cfg.kx, cfg.il, cfg.ix)
     for k in ("atmo", "m_atmo"):
         if series[k].shape != shape:
@@ -1673,10 +1680,8 @@ def phase_pipeline(bindir, region_block):
         raise AssertionError("the dry-core forecasts carry precipitation")
     if not np.all(np.diff(series["hours"]) == rcfg.timestep):
         raise AssertionError("generated samples are not 6-hourly")
-    print(f"FusedDataGenerator: {n_samples} samples ({discard} discard + 1 + "
-          f"{PIPELINE_PAIRS} pairs) in {t_gen:.1f} s: "
-          f"{out['s_per_sample']:.3f} s/sample (a full-physics and a dry "
-          f"window each; device idle share: scripts_torch/profile_slice.py); "
+    print(f"FusedDataGenerator series of reference_scale.py data: "
+          f"{n_samples} samples, "
           + "; ".join(f"{lab} T {ranges[lab + '_t'][0]:.1f}.."
                       f"{ranges[lab + '_t'][1]:.1f} K, |u| <= "
                       f"{max(map(abs, ranges[lab + '_u'])):.1f} m/s, q <= "
@@ -1684,6 +1689,10 @@ def phase_pipeline(bindir, region_block):
                       for lab in ("truth", "model"))
           + f"; rain in {wet:.0%} of cells and windows, max "
           f"{pr.max():.1f} mm/6h; model precipitation all zero")
+
+    # what the train phase trained on: all but the held-out samples
+    series = {k: v[:n_train] for k, v in series.items()}
+    n_samples = n_train
 
     def up(k):
         return torch.as_tensor(series[k], device=dev)
@@ -1695,45 +1704,31 @@ def phase_pipeline(bindir, region_block):
                                   up("m_precip"), up("sst"), up("tisr"), eps)
     n = rcfg.nodes_per_input // L.n_in * L.n_in
     na = L.n_out + n
-    nblocks = -(-L.R // region_block)
-    chunk = min(TRAIN_CHUNK, PIPELINE_PAIRS)
-    train_kw = dict(seed=SEED, region_block=region_block, chunk=chunk)
+    # the train phase's seed, blocks and fold chunk: what its block files
+    # were trained with
+    ckdir = os.path.join(work, "cache.npz.train_ckpt")
+    with np.load(os.path.join(ckdir, sorted(os.listdir(ckdir))[0])) as z:
+        region_block = z["wout"].shape[0]
+    train_kw = dict(seed=0, region_block=region_block, chunk=256)
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckdir = os.path.join(tmp, "blocks")
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         launches = accum.accumulate_ss_scan.launches
         t0 = time.perf_counter()
-        hm = train_hybrid(L, rcfg, gv_truth, gv_model, verbose=True,
-                          checkpoint_dir=ckdir, also_ml=True, **train_kw)
+        hm = train_hybrid(L, rcfg, gv_truth, gv_model, checkpoint_dir=ckdir,
+                          also_ml=True, **train_kw)
         torch.cuda.synchronize()
-        out["train_s"] = time.perf_counter() - t0
-        out["launches_train"] = accum.accumulate_ss_scan.launches - launches
-        peak = torch.cuda.max_memory_allocated()
-        # a block's own working set: the peak over what the run held before
-        # it and the two readouts it fills block by block
-        held = 4 * L.R * L.n_out * (na + n)
-        budget = region_block * na * na * SOLVE_BYTES_PER_ENTRY
-        out.update(peak_gib=peak / 2**30,
-                   block_peak_gib=(peak - before - held) / 2**30,
-                   budget_gib=budget / 2**30)
+        out["read_blocks_s"] = time.perf_counter() - t0
+        if accum.accumulate_ss_scan.launches != launches:
+            raise AssertionError("reading the block files trained a block")
         check_trained(hm, L, na)
         w = hm.wout_ml
         if w is None or tuple(w.shape) != (L.R, L.n_out, n) or \
                 not bool(torch.isfinite(w).all()) or \
                 w.device != hm.params.wout.device or w.device.type != dev.type:
             raise AssertionError(f"no finite ML-only readout on {dev}")
-        ck_bytes = sum(os.path.getsize(os.path.join(ckdir, f))
-                       for f in os.listdir(ckdir))
-        print(f"train_hybrid(also_ml=True, checkpoint_dir): {L.R} regions, "
-              f"na={na}, {PIPELINE_PAIRS} pairs, {nblocks} blocks of "
-              f"{region_block}: {out['train_s']:.1f} s, "
-              f"{out['launches_train']} kernel launches; peak device memory "
-              f"{out['peak_gib']:.2f} GiB, of it an also_ml block's own "
-              f"{out['block_peak_gib']:.2f} GiB (region_block_for budgets "
-              f"{out['budget_gib']:.2f} GiB); block files "
-              f"{ck_bytes / 1e9:.2f} GB")
+        print(f"train_hybrid(also_ml=True, checkpoint_dir) over the train "
+              f"phase's {len(os.listdir(ckdir))} block files: "
+              f"{out['read_blocks_s']:.1f} s, no block trained")
 
         # resume: the last two blocks gone, the ML readout of the last one
         # left gone too; those three are trained again, bitwise the same
@@ -1912,6 +1907,434 @@ def phase_pipeline(bindir, region_block):
     return out
 
 
+# ----------------------------------------------------------------------
+# the scripts users run, and the model's options
+# ----------------------------------------------------------------------
+def _script(name):
+    """A script of scripts_torch as a module: its main(argv) is what a user
+    runs from the command line."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts_torch", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"scripts_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_script(name, argv, ok_codes=(0,)):
+    """name's main(argv) in this process, its output echoed: (exit code,
+    seconds, the kernel's launches in it, what it printed)."""
+    import contextlib
+    import io
+
+    import torch
+    from speedyml_torch.ops import accum
+    buf = io.StringIO()
+    n0 = accum.accumulate_ss_scan.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = _script(name).main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = accum.accumulate_ss_scan.launches - n0
+    text = buf.getvalue()
+    print(text, end="")
+    print(f"script {name} {argv[0]}: exit {rc} in {secs:.1f} s, {n} kernel "
+          f"launches [{CARD}]")
+    if rc not in ok_codes:
+        raise AssertionError(f"{name} {argv}: exit code {rc}")
+    torch.cuda.empty_cache()
+    return rc, secs, n, text
+
+
+def _json_printed(text):
+    """The JSON object a script printed (its first '{' to its last '}')."""
+    return json.loads(text[text.index("{"):text.rindex("}") + 1])
+
+
+def _check_fields(label, arrays):
+    """Finite, and inside the safety bounds where the field has one."""
+    import numpy as np
+    from speedyml_torch.hybrid.state_io import SAFE_BOUNDS
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} has non-finite values")
+        if name in SAFE_BOUNDS:
+            lo, hi = SAFE_BOUNDS[name]
+            if not (lo <= a.min() and a.max() <= hi):
+                raise AssertionError(f"{label}: {name} in {a.min():.2f}.."
+                                     f"{a.max():.2f} leaves {lo}..{hi}")
+
+
+def _check_kernel(R, T, chunk, na):
+    """accumulate_ss_scan against its plain version and timed at one shape
+    (phase_kernel), its launches left out of the path's count."""
+    import torch
+    from speedyml_torch.ops import accum
+    launches = accum.accumulate_ss_scan.launches
+    res = phase_kernel(R, T, chunk, na, only_scan=True)["accumulate_ss_scan"]
+    accum.accumulate_ss_scan.launches = launches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_scripts(bindir, work):
+    """The scripts of scripts_torch as users run them, each through its
+    main(argv) in this process, at reference width (--m 6000: n=5760, 1152
+    regions, na=5896) on the stand-in boundary files: reference_scale data
+    (with the ENSO-like anomaly), train (both readouts, block
+    checkpoints), predict, coupled --ocean-train-only and coupled (the
+    chunked loop with the slab ocean, a forecast file); then score_run,
+    decade_table, analyze_forecast and enso_eval on its forecast file and
+    cache, and climate_check cache on the cache. The kernel is held against
+    its plain version at the train and ocean-train phases' first shapes
+    just before each. Stand-in boundaries and a few weeks are no climate:
+    the climate bands are printed, not asserted. Everything is written to
+    `work`, where the pipeline phase reads the cache and the block files.
+    Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from speedyml_torch import ReservoirConfig
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import (SOLVE_BYTES_PER_ENTRY,
+                                                  region_block_for)
+    from speedyml_torch.io.output import read_forecast
+    from speedyml_torch.reservoir.slab import build_ocean_layout
+
+    rcfg = ReservoirConfig()
+    L = build_layout()
+    n = round(rcfg.nodes_per_input / L.n_in) * L.n_in
+    na = L.n_out + n
+    week = rcfg.timestep_slab // rcfg.timestep
+    n_train = SCRIPTS_OCEAN_WEEKS * week
+    samples = n_train + SCRIPTS_HOLDOUT
+    pairs = n_train - rcfg.discardlength // rcfg.timestep - 1
+    chunk = 256                                   # the script's --chunk
+    ocean_block, ocean_m = 64, 2000               # its ocean defaults
+    ol = build_ocean_layout(L)
+    na_o = ol.n_out + round(ocean_m / ol.n_in) * ol.n_in
+    discard_o = max(1, min(SCRIPTS_OCEAN_WEEKS // 4, 8))
+    pairs_o = SCRIPTS_OCEAN_WEEKS - discard_o - 1
+    coupled_steps = SCRIPTS_COUPLED_WEEKS * week
+    enso = ["--enso-seed", str(ENSO["seed"]), "--enso-amp",
+            str(ENSO["amp"]), "--enso-period-days", str(ENSO["period_days"])]
+    out = {"samples": samples, "pairs": pairs, "na": na}
+
+    def f(name):
+        return os.path.join(work, name)
+
+    common = ["--bindir", bindir, "--cache", f("cache.npz"), "--holdout",
+              str(SCRIPTS_HOLDOUT), "--weights", f("w.nc"),
+              "--ml-weights", f("w_ml.nc")]
+    # the data phase, in a year whose days lie inside the anomaly's record
+    _, out["data_s"], _, _ = _run_script("reference_scale", [
+        "data", "--samples", str(samples), "--spinup-days",
+        str(SCRIPTS_SPINUP_DAYS), "--year", str(PIPELINE_YEAR)] + enso
+        + common)
+    with np.load(f("cache.npz")) as z:
+        keys = sorted(z.files)
+        if keys != sorted(["atmo", "logp", "precip", "sst", "tisr",
+                           "hours", "m_atmo", "m_logp", "m_precip"]):
+            raise AssertionError(f"cache keys {keys}")
+        if z["atmo"].shape != (samples, 4, L.kx, L.il, L.ix):
+            raise AssertionError(f"cache atmo {z['atmo'].shape}")
+        for label, key in (("truth", "atmo"), ("model", "m_atmo")):
+            _check_fields(f"cache {label}", {
+                k: z[key][:, i] for i, k in enumerate("tuvq")})
+        _check_fields("cache", {k: z[k] for k in (
+            "logp", "precip", "sst", "tisr")})
+        sst_var = float(z["sst"].std(axis=0).max())
+    print(f"cache: {samples} samples, largest SST std over the series "
+          f"{sst_var:.2f} K (the imposed anomaly)")
+
+    # train: the block the card's free memory holds beside the series,
+    # and the kernel at its shape first
+    series_bytes = 2 * 4 * L.gv_len * samples
+    rb = region_block_for(na, torch.cuda.mem_get_info()[0], L.R,
+                          series_bytes, chunk)
+    out["region_block"] = rb
+    out["at_train_shape"] = dict(T=pairs, R=rb, na=na, **_check_kernel(
+        rb, pairs, min(chunk, pairs), na))
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, out["train_s"], out["launches_train"], _ = _run_script(
+        "reference_scale", ["train", "--region-block", str(rb)] + common)
+    # a block's own working set: the train phase's peak over what this
+    # process held before it, the packed series and the two readouts it
+    # fills block by block
+    peak = torch.cuda.max_memory_allocated()
+    held = series_bytes + 4 * L.R * L.n_out * (na + n)
+    out.update(train_peak_gib=peak / 2**30,
+               block_peak_gib=(peak - before - held) / 2**30,
+               budget_gib=rb * na * na * SOLVE_BYTES_PER_ENTRY / 2**30)
+    print(f"train phase: peak device memory {out['train_peak_gib']:.2f} GiB, "
+          f"of it a block's own {out['block_peak_gib']:.2f} GiB "
+          f"(region_block_for budgets {out['budget_gib']:.2f} GiB) [{CARD}]")
+    for name in ("w.nc", "w_ml.nc"):
+        if not os.path.getsize(f(name)) > 0:
+            raise AssertionError(f"the train phase wrote no {name}")
+    blocks = os.listdir(f("cache.npz.train_ckpt"))
+    if len(blocks) != -(-L.R // rb) or out["launches_train"] < 1:
+        raise AssertionError(f"{len(blocks)} block files, "
+                             f"{out['launches_train']} launches")
+    _, out["predict_s"], _, _ = _run_script("reference_scale", [
+        "predict", "--fc-steps", str(SCRIPTS_HOLDOUT), "--results",
+        f("predict.json")] + common)
+    with open(f("predict.json")) as fh:
+        pred = json.load(fh)
+    lead = pred["leads"][f"{SCRIPTS_HOLDOUT * rcfg.timestep}h"]
+    if not all(np.isfinite(v) for row in lead.values()
+               for v in row.values()):
+        raise AssertionError(f"predict scores {lead}")
+    out["predict_leads"] = pred["leads"]
+
+    # the ocean: the kernel at its training shape, then the phase
+    out["at_ocean_shape"] = dict(T=pairs_o, R=ocean_block, na=na_o,
+                                 **_check_kernel(ocean_block, pairs_o,
+                                                 pairs_o, na_o))
+    _, out["ocean_train_s"], out["launches_ocean"], _ = _run_script(
+        "reference_scale", ["coupled", "--ocean-train-only",
+                            "--results", f("coupled.json")] + common)
+    if out["launches_ocean"] < 1 or not os.listdir(
+            f("cache.npz.ocean_ckpt")):
+        raise AssertionError("the ocean trained without the kernel or "
+                             "wrote no block")
+    nc = f("run.nc")
+    _, out["coupled_s"], _, _ = _run_script("reference_scale", [
+        "coupled", "--fc-steps", str(coupled_steps), "--out", nc,
+        "--results", f("coupled.json")] + common)
+    with open(f("coupled.json")) as fh:
+        res = json.load(fh)
+    if res["steps"] != coupled_steps or res["aborted"] or \
+            res["loop"] != "fast":
+        raise AssertionError(f"coupled run: {res}")
+    fc = read_forecast(nc)
+    _check_fields("forecast file", {
+        "t": fc["Temperature"], "u": fc["U-wind"], "v": fc["V-wind"],
+        "q": fc["Specific-Humidity"], "logp": fc["logp"],
+        "sst": fc["SST"], "p6hr": fc["p6hr"]})
+    if fc["Temperature"].shape[0] != coupled_steps:
+        raise AssertionError(f"{fc['Temperature'].shape[0]} steps in "
+                             f"the forecast file")
+    ckpt = os.path.exists(nc + ".ckpt.npz")
+    if ckpt != (coupled_steps >= 112):      # the script's cadence
+        raise AssertionError(f"run checkpoint present: {ckpt}")
+    out["coupled_ms_per_step"] = 1e3 * res["wall_s"] / coupled_steps
+    out["coupled"] = {k: res[k] for k in ("T_range", "u_range",
+                                          "q_range", "sst_range",
+                                          "sst_drift_K")}
+
+    # the scripts that judge the run
+    rc, out["score_run_s"], _, text = _run_script(
+        "score_run", ["--nc", nc, "--out", f("score.json"),
+                      "--skip-days", "1"], ok_codes=(0, 1))
+    with open(f("score.json")) as fh:
+        score = json.load(fh)
+    if score != _json_printed(text) or score["ok"] != (rc == 0):
+        raise AssertionError("score_run's JSON and verdict disagree")
+    out["score_run"] = score
+    _, out["decade_table_s"], _, text = _run_script(
+        "decade_table", ["--nc", nc, "--steps-per-year",
+                         str(SCRIPTS_STEPS_PER_YEAR), "--out",
+                         f("decade.json")])
+    with open(f("decade.json")) as fh:
+        table = json.load(fh)
+    if len(table["years"]) != coupled_steps // SCRIPTS_STEPS_PER_YEAR:
+        raise AssertionError(f"decade table: {len(table['years'])} "
+                             f"years")
+    _, out["analyze_forecast_s"], _, _ = _run_script(
+        "analyze_forecast", [nc, "--pressure", "500", "850"])
+    _, out["enso_eval_s"], _, text = _run_script(
+        "enso_eval", ["--nc", nc, "--cache", f("cache.npz"),
+                      "--holdout", str(SCRIPTS_HOLDOUT), "--skip-days",
+                      "1", "--bindir", bindir, "--out", f("enso.json")]
+        + enso)
+    with open(f("enso.json")) as fh:
+        ev = json.load(fh)
+    if ev != _json_printed(text) or not np.isfinite(
+            ev["nino34_run_anom_std_K"]):
+        raise AssertionError(f"enso_eval: {ev}")
+    out["enso_eval"] = ev
+    rc, out["climate_check_s"], _, text = _run_script(
+        "climate_check", ["cache", "--cache", f("cache.npz")],
+        ok_codes=(0, 1))
+    cc = _json_printed(text)
+    if cc["ok"] != (rc == 0) or not all(
+            np.isfinite(v) for v in cc["scores"].values()):
+        raise AssertionError(f"climate_check cache: {cc}")
+    out["climate_check_cache"] = cc["scores"]
+    print(f"scripts at reference width [{CARD}]: data {out['data_s']:.1f} "
+          f"s ({samples} samples), train {out['train_s']:.1f} s "
+          f"({out['launches_train']} launches, blocks of {rb}), predict "
+          f"{out['predict_s']:.1f} s, ocean train {out['ocean_train_s']:.1f} "
+          f"s ({out['launches_ocean']} launches), coupled "
+          f"{out['coupled_s']:.1f} s ({coupled_steps} steps, "
+          f"{out['coupled_ms_per_step']:.1f} ms/step on the host clock "
+          f"with its load and ocean set-up); score_run ok={score['ok']}, "
+          f"enso_eval ok={ev['ok']}, climate_check cache ok={cc['ok']} "
+          f"(bands printed above, not asserted)")
+    return out
+
+
+def phase_free_options(bindir):
+    """The full-physics model with SPPT, random diabatic forcing and time
+    means for OPTIONS_DAYS days: its fields finite and in bounds, the GrADS
+    file of its time means read back bitwise, each mean inside the range
+    of the samples it averaged, the tendencies of a step with SPPT against
+    the same step without it; climate_check run on the card; ms per model
+    day with the options and without them, by CUDA events."""
+    import numpy as np
+    import torch
+    import speedyml_torch.model as model_mod
+    from speedyml_torch import ModelConfig
+    from speedyml_torch.io.grads import read_grads
+    from speedyml_torch.model import Speedy
+    from speedyml_torch.utils import timemean as tmm
+
+    opts = dict(sppt_on=True, rdf_on=True, time_means_on=True)
+    out = {}
+    # the extremes of every sample the accumulators take
+    ext = {}
+    orig_update, orig_fluxes = model_mod.tm_update, model_mod.tm_update_fluxes
+
+    def track(key, sample):
+        lo, hi = ext.get(key, (sample, sample))
+        ext[key] = (torch.minimum(lo, sample), torch.maximum(hi, sample))
+
+    def tm_update(dy, st, fld, tm):
+        new = orig_update(dy, st, fld, tm)
+        track("mean3d", new.mean3d - tm.mean3d)
+        track("mean2d", new.mean2d - tm.mean2d)
+        return new
+
+    def tm_update_fluxes(fx, tm):
+        new = orig_fluxes(fx, tm)
+        track("flux2d", new.flux2d - tm.flux2d)
+        return new
+
+    sp = Speedy(ModelConfig(**opts), bindir)
+    model_mod.tm_update, model_mod.tm_update_fluxes = (tm_update,
+                                                       tm_update_fluxes)
+    try:
+        sp.initialize(1982, 1)
+        sp.run_days(OPTIONS_DAYS)
+        torch.cuda.synchronize()
+    finally:
+        model_mod.tm_update, model_mod.tm_update_fluxes = (orig_update,
+                                                           orig_fluxes)
+    view = sp.grid_view()
+    _check_fields("options run", {k: view[k] for k in ("t", "u", "v", "q")})
+    if not all(bool(torch.isfinite(v).all()) for v in sp.state):
+        raise AssertionError("options run: non-finite spectral state")
+    tm = sp.time_means
+    counts = (float(tm.rnsave), float(tm.nstep))
+    cfg = sp.config
+    if counts != (OPTIONS_DAYS * cfg.nsteps // cfg.nstppr,
+                  OPTIONS_DAYS * cfg.nsteps):
+        raise AssertionError(f"time-mean counters {counts}")
+    sums = {"mean3d": tm.mean3d, "mean2d": tm.mean2d, "flux2d": tm.flux2d}
+    worst = 0.0
+    for key, total in sums.items():
+        n = counts[1] if key == "flux2d" else counts[0]
+        lo, hi = ext[key]
+        mean = total.double() / n
+        # the f32 sums of up to OPTIONS_DAYS * 96 samples round by a few
+        # hundred ulps of the field's size
+        slack = 1e-5 * torch.maximum(lo.abs(), hi.abs()).double() + 1e-30
+        over = torch.maximum(lo.double() - mean, mean - hi.double())
+        worst = max(worst, float((over / slack).max()))
+        if not bool((over <= slack).all()):
+            raise AssertionError(f"time means {key}: a mean leaves the "
+                                 f"range of its samples")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "means")
+        fields = sp.write_time_means(base)
+        n3 = [k for k in tmm.MEAN3D_NAMES + tmm.VAR3D_NAMES if k in fields]
+        n2 = [k for k in tmm.MEAN2D_NAMES + tmm.FLUX2D_NAMES if k in fields]
+        g3, g2 = read_grads(base, cfg.kx, cfg.il, cfg.ix, len(n3), len(n2))
+        for g, names in ((g3, n3), (g2, n2)):
+            for i, name in enumerate(names):
+                if not np.array_equal(g[0, i], fields[name].astype("<f4")):
+                    raise AssertionError(f"GrADS {name} does not read back "
+                                         f"bitwise")
+                if not np.isfinite(g[0, i]).all():
+                    raise AssertionError(f"GrADS {name} non-finite")
+        with open(base + ".ctl") as fh:
+            ctl = fh.read()
+        if f"vars {len(n3) + len(n2)}" not in ctl:
+            raise AssertionError("the .ctl does not list the variables")
+    if float(sp.time_means.rnsave) != 0.0:
+        raise AssertionError("write_time_means did not reset the sums")
+
+    # one step's tendencies with the next SPPT pattern and without it
+    surf, _ = sp.surf_forcing(sp.date)
+    _, pattern = sp._sppt.step(sp._sppt_state, sp._sppt_day + 1, 0)
+    f = sp.state.at_level(0)
+    on = sp._phys_fn(surf, sp.rad, True, sp._randfh, pattern)(sp.dy, f)[0]
+    off = sp._phys_fn(surf, sp.rad, True, sp._randfh)(sp.dy, f)[0]
+    no_rdf = sp._phys_fn(surf, sp.rad, True)(sp.dy, f)[0]
+    d_sppt = max(float((a - b).abs().max()) for a, b in zip(on, off))
+    if not d_sppt > 0.0:
+        raise AssertionError("SPPT left the tendencies as they were")
+    for a, b in zip(on, off):
+        if not torch.allclose(a, b * (1.0 + pattern * sp._sppt.mu_col),
+                              rtol=1e-6, atol=0.0):
+            raise AssertionError("the SPPT tendencies are not the plain "
+                                 "ones times 1 + pattern * mu")
+    d_rdf = [float((a - b).abs().max()) for a, b in zip(off, no_rdf)]
+    if not (d_rdf[2] > 0.0 and d_rdf[0] == d_rdf[1] == d_rdf[3] == 0.0):
+        raise AssertionError(f"random diabatic forcing moved {d_rdf}")
+    out.update(sppt_max_tendency_change=d_sppt, rdf_max_dtt=d_rdf[2],
+               mean_range_worst=worst)
+    del sp
+
+    # ms per model day by CUDA events, in turns (options, plain, plain,
+    # options) after a first day of each model
+    models = {"options": Speedy(ModelConfig(**opts), bindir),
+              "plain": Speedy(ModelConfig(), bindir)}
+    for m in models.values():
+        m.initialize(1982, 1)
+        m.run_day()
+    turns = {"options": [], "plain": []}
+    for label in ("options", "plain", "plain", "options"):
+        turns[label].append(_cuda_ms(models[label].run_day, 1))
+    for label, ms in turns.items():
+        out[f"day_ms_{label}"] = statistics.mean(ms)
+        out[f"day_ms_{label}_turns"] = ms
+    del models
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "climate.json")
+        rc, out["climate_check_run_s"], _, text = _run_script(
+            "climate_check", ["run", "--spinup", "0", "--days", "2",
+                              "--bindir", bindir, "--out", path],
+            ok_codes=(0, 1))
+        with open(path) as fh:
+            js = json.load(fh)
+    verdict = text.strip().splitlines()[-1]
+    if js != _json_printed(text) or js["ok"] != (rc == 0) or \
+            verdict != "CLIMATE CHECK " + ("OK" if js["ok"] else "FAILED") \
+            or not all(np.isfinite(v) for v in js["scores"].values()):
+        raise AssertionError(f"climate_check run: {js}, {verdict!r}")
+    out["climate_check_run"] = js["scores"]
+    print(f"model options [{CARD}]: {OPTIONS_DAYS} days with SPPT, random "
+          f"diabatic forcing and time means: fields in bounds, GrADS read "
+          f"back bitwise, every mean inside its samples' range (worst "
+          f"{worst:.2f} of the float32 slack), SPPT changes a tendency by "
+          f"up to {d_sppt:.3e} (exactly 1 + pattern * mu), the forcing dtt "
+          f"by up to {d_rdf[2]:.3e} K/s; ms per model day by CUDA events, "
+          f"mean of two turns: {out['day_ms_options']:.1f} with the options "
+          f"{turns['options']}, {out['day_ms_plain']:.1f} without "
+          f"{turns['plain']}; climate_check run exit {rc}")
+    return out
+
+
+
 def inject_state(sp, gs):
     """The physics time level of a grid state, through the safety gate."""
     from speedyml_torch.hybrid.state_io import inject
@@ -1938,6 +2361,7 @@ def main():
     import torch
     from speedyml_torch import ReservoirConfig
     from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import region_block_for
     from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
     from speedyml_torch.ops import accum
 
@@ -1978,20 +2402,27 @@ def main():
         full, n_full, n_full_single = counted(
             "full-physics path", phase_full_physics_path, bindir,
             region_block, t_run0)
-        pipe, n_pipe, n_pipe_single = counted(
-            "pipeline", phase_pipeline, bindir, region_block)
+        # the scripts, then the pipeline on their cache and block files
+        with tempfile.TemporaryDirectory() as work:
+            scripts, n_scripts, n_scripts_single = counted(
+                "scripts", phase_scripts, bindir, work)
+            pipe, n_pipe, n_pipe_single = counted(
+                "pipeline", phase_pipeline, bindir, work)
+        options = timed("free model options", phase_free_options, bindir)
+        torch.cuda.empty_cache()
     long_tr, n_long, n_long_single = counted(
         "long training", phase_long_training, region_block)
     # the paths give the kernel other series lengths than the one timed
     # above: hold it against the plain version at each of them too
     at_len = {}
-    for T in sorted({DRY_PAIRS, full["pairs"], PIPELINE_PAIRS}):
+    for T in sorted({DRY_PAIRS, full["pairs"]}):
         res = timed(f"kernel at T={T}", phase_kernel, region_block, T,
                     min(TRAIN_CHUNK, T), na, True)
         at_len[T] = dict(T=T, R=region_block, na=na,
                          **res["accumulate_ss_scan"])
-    at_dry, at_full, at_pipe = (at_len[DRY_PAIRS], at_len[full["pairs"]],
-                                at_len[PIPELINE_PAIRS])
+    at_dry, at_full = at_len[DRY_PAIRS], at_len[full["pairs"]]
+    # the pipeline trains at the scripts' train shape (checked there)
+    at_scripts = scripts.pop("at_train_shape")
     coupled = full["coupled"]
     n_ocean = coupled["launches_ocean_training"]
     n_full -= n_ocean
@@ -2008,21 +2439,32 @@ def main():
     # does not call it, so it is checked and timed above but listed apart
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
-                          n_dry + n_full + n_ocean + n_pipe + n_long,
+                          n_dry + n_full + n_ocean + n_pipe + n_scripts
+                          + n_long,
                           launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
                           launches_ocean_training=n_ocean,
                           launches_pipeline=n_pipe,
+                          launches_scripts=n_scripts,
+                          launches_scripts_train=scripts["launches_train"],
+                          launches_scripts_ocean=scripts["launches_ocean"],
                           launches_long_training=n_long,
                           at_long_shape=long_tr,
                           at_dry_shape=at_dry,
                           at_full_physics_shape=at_full,
                           at_ocean_shape=coupled.pop("at_ocean_shape"),
-                          at_pipeline_shape=at_pipe)],
+                          at_pipeline_shape=at_scripts,
+                          at_scripts_train_shape=at_scripts,
+                          at_scripts_ocean_shape=scripts.pop(
+                              "at_ocean_shape"))],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
                            n_dry_single + n_full_single + n_pipe_single
-                           + n_long_single)],
-        "full_physics": full, "pipeline": pipe}))
+                           + n_scripts_single + n_long_single)],
+        "full_physics": full, "pipeline": pipe,
+        "scripts": {k: v for k, v in scripts.items()
+                    if not isinstance(v, dict)},
+        "model_options": {k: v for k, v in options.items()
+                          if not isinstance(v, dict)}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

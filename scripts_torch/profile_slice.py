@@ -45,7 +45,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (SEED, TRAIN_CHUNK, TRAIN_SAMPLES,  # noqa: E402
-                        phase_device, region_block_for, smooth_gridstate)
+                        phase_device, smooth_gridstate)
 
 
 def _self_device_us(evt) -> float:
@@ -177,6 +177,7 @@ def profile_train_block():
     from speedyml_torch.domain.decomposition import build_layout
     from speedyml_torch.ops.accum import accumulate_ss_scan
     from speedyml_torch.reservoir.generate import generate_esn
+    from speedyml_torch.hybrid.experiment import region_block_for
     from speedyml_torch.reservoir.training import (drive_and_accumulate,
                                                    drive_discard,
                                                    init_normal_eq,

@@ -3,8 +3,9 @@
 Each module mirrors the speedyml module of the same name. The package imports
 torch, never jax and nothing of speedyml: the host modules it needs (core,
 transforms.tables, the numpy helpers of reservoir.generate, physics.constants,
-io.{boundary,checkpoint,ncstream,output,era},
-coupler.{climatology,daily,anomaly}) are its own copies. Entry points build
+io.{boundary,checkpoint,ncstream,output,era,grads},
+coupler.{climatology,daily,anomaly}, utils.{analysis,climate}) are its own
+copies. Entry points build
 their tensors on the card unless the caller names another device
 (`device="cpu"`, as the CPU tests do). The configuration and calendar types
 and what a user of the training pipeline (generate -> train -> ML-only

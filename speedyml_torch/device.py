@@ -14,6 +14,19 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
+def script_device(cpu: bool) -> torch.device:
+    """The device of a script of scripts_torch: the CPU when its --cpu flag
+    asks for it, else the card. Without a card and without --cpu the script
+    stops with a nonzero exit code: it never carries on on the CPU by
+    itself."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script runs on the card; "
+                         "pass --cpu to run it on the CPU")
+    return torch.device("cuda")
+
+
 def to_host(a) -> np.ndarray:
     """A tensor (on any device) or an array as host numpy. On a tensor of
     the card this waits for the work that produces it."""

@@ -43,8 +43,8 @@ from ..reservoir.esn import (EsnParams, advance, predict_step, readout_split,
 from ..reservoir.generate import generate_esn, radius_by_lat, shifts_from_ell
 from ..reservoir.slab import compose_week_inputs
 from ..reservoir.training import (block_generator, drive_and_accumulate,
-                                  drive_discard, init_normal_eq,
-                                  ridge_solve)
+                                  drive_discard, fold_segment,
+                                  init_normal_eq, ridge_solve)
 from .forecast import SpeedyForecaster, TrajectoryRunner
 from .state_io import GridState
 
@@ -239,6 +239,45 @@ class HybridModel:
 # ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
+# device bytes a training block holds per entry of its (na, na) systems at
+# the solve: the f32 hi/lo pair (8), the f64 system and its Cholesky factor
+# (16), and one for the solver's workspace and the block's other tensors
+# (an also_ml block of 48 regions at na=5896 peaked at 24.96 bytes an entry
+# on an H100, PERF.md section 5)
+SOLVE_BYTES_PER_ENTRY = 25
+# the share of the free device memory a training block may budget for: its
+# (na, na) systems, one drive segment and the series training keeps on the
+# card
+BLOCK_MEMORY_SHARE = 0.55
+
+
+def segment_bytes(R: int, na: int, chunk: int) -> int:
+    """Device bytes of one drive segment of a block of R regions on the
+    card: its augmented states (reservoir.training.fold_segment steps) and
+    the kernel's scratch for one of its launches (builds the kernel if it is
+    not built yet)."""
+    from ..ops import accum
+    seg = fold_segment(R, na, chunk, "cuda")
+    kseg = accum.segment_steps(R, na)
+    return 4 * (seg * R * na
+                + accum._load().accum_ss_scratch_floats(kseg, R, na))
+
+
+def region_block_for(na: int, free_bytes: int, R: int, series_bytes: int = 0,
+                     chunk: int = 128) -> int:
+    """Regions per training block on the card, a multiple of 8:
+    SOLVE_BYTES_PER_ENTRY of each (na, na) system per region, one drive
+    segment (segment_bytes) and the series training keeps on the card
+    (series_bytes), in BLOCK_MEMORY_SHARE of `free_bytes` (the device's free
+    memory)."""
+    per_region = na * na * SOLVE_BYTES_PER_ENTRY
+    rb = min(R, int(BLOCK_MEMORY_SHARE * free_bytes / per_region)) // 8 * 8
+    while rb > 8 and rb * per_region + segment_bytes(rb, na, chunk) \
+            + series_bytes > BLOCK_MEMORY_SHARE * free_bytes:
+        rb -= 8
+    return max(1, rb)
+
+
 def _load_block(path: str, also_ml: bool, dev) -> Optional[dict]:
     """A finished region block from its checkpoint file, as tensors on dev;
     None when the file is absent, or when an also_ml run finds it without

@@ -7,8 +7,12 @@ loop of eager steps), end-of-day slab land/sea/ice update. The model state
 stays on the device; the coupler works on the host in numpy float64 at the
 daily cadence and its fields are uploaded once per day.
 
-The options that are off by default in the JAX package (random diabatic
-forcing, SPPT, time-mean diagnostics) are not ported.
+The options that are off by default run as in the JAX package: random
+diabatic forcing (`rdf_on`, physics.randfor), SPPT (`sppt_on`,
+physics.sppt; its noise comes from torch generators, not jax.random) and
+the time-mean diagnostics with GrADS output (`time_means_on`,
+utils.timemean, `write_time_means`). The 6-h window of the hybrid
+forecasters runs without them, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -30,7 +34,11 @@ from .io.boundary import BoundaryData
 from .physics.constants import PP, make_sigma_tables
 from .physics.driver import (Physics, RadCarry, StepFluxes,
                              SurfaceDailyState, init_rad_carry)
+from .physics.randfor import make_randfh
+from .physics.sppt import Sppt
 from .physics.surface import sflset
+from .utils.timemean import (init_timemean, tm_update, tm_update_fluxes,
+                             write_grads)
 
 
 class DailyFluxes(NamedTuple):
@@ -55,9 +63,6 @@ def ice_flux(fx: StepFluxes, surf: SurfaceDailyState) -> torch.Tensor:
     return fx.hfluxn_s + difice * (1.0 - surf.sice_am)
 
 
-_UNPORTED = ("rdf_on", "sppt_on", "time_means_on")
-
-
 class Speedy:
     """The model on `device` (the card unless the caller names another),
     with the boundary files of `bindir` (see io.boundary; stand-in files:
@@ -65,9 +70,6 @@ class Speedy:
 
     def __init__(self, config: ModelConfig, bindir: str,
                  device: torch.device | str | None = None):
-        for opt in _UNPORTED:
-            if getattr(config, opt):
-                raise NotImplementedError(f"ModelConfig.{opt} is not ported")
         self.config = config
         # dycore first (owns the spectral transform + truncated orography)
         self.dy = Dycore(config, orog=BoundaryData(bindir).orog,
@@ -91,6 +93,29 @@ class Speedy:
         self.surf: Optional[SurfaceDailyState] = None
         self.forcing: Optional[Forcing] = None
         self._bootstrapped = False
+
+        # random diabatic forcing pattern (off by default; ini_inirdf)
+        self._randfh = None
+        if config.rdf_on:
+            self._randfh = torch.as_tensor(
+                make_randfh(self.dy.T, np.asarray(self.dy.tables.gsin),
+                            config.ix, seed=config.rdf_index),
+                dtype=self.dy.dtype, device=self.device)
+
+        # time-mean diagnostics (off by default; mod_tmean/ppo_tminc/tmout)
+        self.time_means = None
+        if config.time_means_on:
+            self.time_means = self._zero_time_means()
+
+        # SPPT stochastic physics (off by default, mod_tsteps.f90:68): the
+        # AR(1) state, and the days run so far (its noise is a function of
+        # the day and the step)
+        self._sppt = None
+        self._sppt_state = None
+        self._sppt_day = 0
+        if config.sppt_on:
+            self._sppt = Sppt(self.dy)
+            self._sppt_state = self._sppt.init()
 
     # ------------------------------------------------------------------
     def _upload(self, arrays):
@@ -134,10 +159,21 @@ class Speedy:
                                   self.device)
         self._bootstrap()
 
-    def _phys_fn(self, surf, rad, lradsw: bool):
+    def _zero_time_means(self):
+        cfg = self.config
+        return init_timemean(cfg.kx, cfg.il, cfg.ix, self.dy.dtype,
+                             self.device)
+
+    def _phys_fn(self, surf, rad, lradsw: bool, randfh=None,
+                 sppt_pattern=None):
+        """The physics hook of one dycore step. The model's own steps pass
+        its random diabatic forcing pattern and SPPT pattern; the hybrid
+        forecasters' windows pass neither."""
         def fn(dy, fphy):
             tends, rad_new, fluxes = self.phys.step_physics(
-                dy, fphy, surf, rad, lradsw)
+                dy, fphy, surf, rad, lradsw, randfh=randfh)
+            if sppt_pattern is not None:
+                tends = self._sppt.perturb(tends, sppt_pattern)
             return tends, (rad_new, fluxes)
         return fn
 
@@ -146,9 +182,11 @@ class Speedy:
         (ini_stepone.f90; lradsw=.true. initially, mod_lflags.f90:22)."""
         dy = self.dy
         state, (rad, _) = dy.step(self.state, self.forcing, 0, 0, "half",
-                                  self._phys_fn(self.surf, self.rad, True))
+                                  self._phys_fn(self.surf, self.rad, True,
+                                                self._randfh))
         state, (rad, _) = dy.step(state, self.forcing, 0, 1, "delt",
-                                  self._phys_fn(self.surf, rad, True))
+                                  self._phys_fn(self.surf, rad, True,
+                                                self._randfh))
         self.state, self.rad = state, rad
         self._bootstrapped = True
 
@@ -164,14 +202,29 @@ class Speedy:
         self.surf, self.forcing = self.surf_forcing(self.date)
         surf, forcing = self.surf, self.forcing
 
-        # 2.-3. one day of leapfrog steps with flux accumulation
+        # 2.-3. one day of leapfrog steps with flux accumulation, the SPPT
+        # pattern's step before each (its noise keyed by the day and the
+        # step) and the time means after each
         state, rad = self.state, self.rad
         z = torch.zeros((cfg.il, cfg.ix), dtype=dy.dtype, device=self.device)
         acc = DailyFluxes(z, z, z, z, z, z, z)
+        if self._sppt is not None:
+            self._sppt_day += 1
         for j in range(cfg.nsteps):
             lradsw = (j % cfg.nstrad) == 0
-            state, (rad, fx) = dy.step(state, forcing, 1, 1, "delt2",
-                                       self._phys_fn(surf, rad, lradsw))
+            pattern = None
+            if self._sppt is not None:
+                self._sppt_state, pattern = self._sppt.step(
+                    self._sppt_state, self._sppt_day, j)
+            state, (rad, fx) = dy.step(
+                state, forcing, 1, 1, "delt2",
+                self._phys_fn(surf, rad, lradsw, self._randfh, pattern))
+            if self.time_means is not None:
+                tm = tm_update_fluxes(fx, self.time_means)
+                # sample the prognostics every nstppr steps (ppo_tminc)
+                if (j + 1) % cfg.nstppr == 0:
+                    tm = tm_update(dy, self.st, state.at_level(0), tm)
+                self.time_means = tm
             acc = DailyFluxes(
                 hflux_l=acc.hflux_l + fx.hfluxn_l * rsteps,
                 hflux_s=acc.hflux_s + fx.hfluxn_s * rsteps,
@@ -194,6 +247,21 @@ class Speedy:
         for _ in range(ndays):
             acc = self.run_day()
         return acc
+
+    def write_time_means(self, basepath: str) -> dict:
+        """tmout(imode>0) equivalent: normalize the accumulated means, write
+        one GrADS record (basepath.grd + basepath.ctl), reset the
+        accumulators (ppo_tmout.f90:34-42, ppo_setctl.f90). Returns the
+        field dict (numpy float64)."""
+        if self.time_means is None:
+            raise ValueError("set ModelConfig.time_means_on")
+        fields = write_grads(
+            self.time_means, basepath,
+            np.degrees(np.asarray(self.dy.tables.radang)),
+            np.asarray(self.st.sig),
+            year=self.date.iyear, month=self.date.imonth)
+        self.time_means = self._zero_time_means()
+        return fields
 
     # ------------------------------------------------------------------
     def grid_view(self, level: int = 0) -> dict:

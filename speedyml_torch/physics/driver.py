@@ -22,6 +22,7 @@ from .constants import PP, DeviceTables, SigmaTables
 from .convection import convmf
 from .humidity import rel_hum
 from .radiation import SolarFields, cloud, radlw_down, radlw_up, radsw
+from .randfor import tt_rdf, xs_rdf
 from .surface import suflux
 from .vdiff import vdifsc
 
@@ -114,11 +115,17 @@ class Physics:
         self.phis0 = up(phis0_grid)   # (il, ix) surface geopotential
 
     def step_physics(self, dy, f, surf: SurfaceDailyState, rad: RadCarry,
-                     lradsw: bool):
+                     lradsw: bool, randfh=None):
         """Returns ((du, dv, dtt, dqt) grid increments, new RadCarry,
         StepFluxes). lradsw is a Python bool: on a shortwave step the cloud
         and shortwave schemes run and the carry is replaced, otherwise the
-        carry passes through untouched (it is never written in place)."""
+        carry passes through untouched (it is never written in place).
+
+        `randfh` (2, il, ix), a tensor on the model's device, if given,
+        enables random diabatic forcing (phy_phypar.f90:202-216): the fixed
+        pattern pair times zonal-mean heating profiles is added to the
+        temperature tendency. The profiles are refreshed every step, as in
+        the JAX package."""
         st = self.st
         T = dy.T
         kx = dy.config.kx
@@ -199,6 +206,13 @@ class Physics:
         vtend = vt_pbl
         ttend = ttend + tt_pbl
         qtend = qtend + qt_pbl
+
+        # --- 5. random diabatic forcing (phy_phypar.f90:202-216) ---
+        if randfh is not None:
+            sig = st.sig_col[:, 0, 0]
+            randfv1 = xs_rdf(tt_lsc, tt_cnv, sig, 1)
+            randfv2 = xs_rdf(rad.tt_rsw, tt_rlw, sig, 2)
+            ttend = ttend + tt_rdf(randfh, randfv1, randfv2)
 
         fluxes = StepFluxes(precnv=precnv, precls=precls,
                             evap=fx.evap, evap_l=fx.evap_l, evap_s=fx.evap_s,

@@ -269,8 +269,17 @@ def test_dry_forecaster_from_a_speedy_or_a_dycore(models):
 
 @pytest.mark.parametrize("option", ["rdf_on", "sppt_on", "time_means_on"])
 def test_unported_options_raise(bindir, option):
-    with pytest.raises(NotImplementedError):
-        Speedy(ModelConfig(**{option: True}), bindir, device=CPU)
+    """The options that raised until they were ported build a model that
+    holds their state (their parity with the JAX package:
+    tests/test_torch_stochastic.py, tests/test_torch_timemean.py); a model
+    without them holds none of it."""
+    def held(sp):
+        return {"rdf_on": sp._randfh, "sppt_on": sp._sppt,
+                "time_means_on": sp.time_means}
+    assert held(Speedy(ModelConfig(**{option: True}), bindir,
+                       device=CPU))[option] is not None
+    assert all(v is None for v in held(Speedy(ModelConfig(), bindir,
+                                              device=CPU)).values())
 
 
 def test_bf16_grid_compute_raises(bindir):

@@ -27,7 +27,14 @@ SLICE_MODULES = [
     "coupler.anomaly", "reservoir.slab", "io.checkpoint", "io.ncstream",
     "io.output", "io.weights", "hybrid.fastloop",
     "io.era", "hybrid.era_training", "hybrid.ensemble", "utils.diag",
+    "utils.analysis", "utils.climate", "utils.timemean", "io.grads",
+    "physics.randfor", "physics.sppt",
 ]
+
+# the scripts of scripts_torch that the source scan must reach
+SCRIPTS = ["accum_accuracy", "profile_slice", "analyze_forecast",
+           "score_run", "decade_table", "climate_check", "enso_eval",
+           "train_from_era", "reference_scale"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -77,6 +84,8 @@ def test_port_sources_name_no_speedyml_import():
     or jax."""
     paths = _port_sources()
     assert any(p.endswith("chip_smoke.py") for p in paths)
+    for name in SCRIPTS:
+        assert os.path.join(REPO, "scripts_torch", name + ".py") in paths
     assert len(paths) > 20
     for path in paths:
         with open(path) as f:
