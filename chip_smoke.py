@@ -25,11 +25,12 @@ readout 1152 x 136 x 5896):
     (n=4032; its normal equations go through the kernel too, at shapes the
     kernel is first held against its plain version at), the anomaly gate
     calibrated, the trained hybrid saved to a model file and loaded back
-    onto the card, two ocean weeks (56 steps) of the full-physics hybrid
+    onto the card, one ocean week (28 steps) of the full-physics hybrid
     through the chunked `ScanHybridRunner` with the ocean's weekly SST
     feedback, a forecast file and a checkpoint, one chunk under
-    `torch.cuda.set_sync_debug_mode("error")`, and the per-step
-    `HybridRunner` resuming the chunked loop's checkpoint for a week;
+    `torch.cuda.set_sync_debug_mode("error")`, and the next week from that
+    checkpoint twice: the chunked loop and the per-step `HybridRunner`
+    each resuming it;
   * the ensemble, on the full-physics path's trained model: `EnsembleHybrid`
     with two members against two single-member steps, every output to the
     float32 readout's rounding (dry window; full-physics window in
@@ -42,11 +43,19 @@ readout 1152 x 136 x 5896):
   * the scripts of scripts_torch as users run them, through their
     main(argv) at reference width on the stand-in files: reference_scale.py
     data (with the ENSO-like anomaly), train (both readouts, block files),
-    predict, coupled --ocean-train-only and a two-week coupled run with its
+    predict, coupled --ocean-train-only and a one-week coupled run with its
     forecast file (the kernel held against its plain version at the train
     and ocean shapes first), then score_run, decade_table,
     analyze_forecast, enso_eval and climate_check cache on what they
     wrote;
+  * the tools users run, on the files the scripts wrote: the reference-
+    worker weight files of the trained model's first regions at reference
+    width, written and read back onto the card equal; demo_hybrid.py with
+    the slab ocean, its forecast, GrADS and component files and its
+    ML-only branch (the kernel held against its plain version at the
+    demo's shapes first); diag_precip_bias.py, make_precip_debias.py and
+    diag_wetbias.py; mldivide card against CPU; the native IO loader built
+    on the machine, its decoder and gathers against numpy;
   * the training pipeline, the way the model's users make a model, on the
     series and block files the scripts leave: one `FusedDataGenerator` day
     with host syncs forbidden, the series checked,
@@ -89,6 +98,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 
 SEED = 20240101
 TRAIN_CHUNK = 128          # time steps per normal-equation fold
@@ -105,11 +115,12 @@ SPINUP_DAYS = 5
 FULL_PAIRS = (100, 256)
 TARGET_SECONDS = 600.0
 # the coupled loop: steps of an ocean week, weeks through the chunked loop,
-# and the hybrid steps the coupled phases take in all (two weeks chunked, one
-# chunked again to the checkpoint, one per step from it), for the sizing
+# and the hybrid steps the coupled phases take in all (the chunked weeks to
+# a checkpoint, then the next week twice: chunked on from the carry in
+# memory, and per step from the checkpoint file), for the sizing
 WEEK = 28
-COUPLED_WEEKS = 2
-COUPLED_STEPS = (2 * COUPLED_WEEKS) * WEEK
+COUPLED_WEEKS = 1
+COUPLED_STEPS = (COUPLED_WEEKS + 2) * WEEK
 # series lengths the ocean's training can hand the kernel, held against the
 # plain version at a small R: below one 8-step product block, below and
 # just above one 32-step stage
@@ -187,13 +198,30 @@ LONG_TRAINING_SECONDS = 60.0
 SCRIPTS_SPINUP_DAYS = 2
 SCRIPTS_HOLDOUT = 4
 SCRIPTS_OCEAN_WEEKS = 5
-SCRIPTS_COUPLED_WEEKS = 2
+SCRIPTS_COUPLED_WEEKS = 1
 SCRIPTS_STEPS_PER_YEAR = 28
 SCRIPTS_SECONDS = 420.0
 # the model's options (SPPT, random diabatic forcing, time means): days run
 # with them, and what the phase takes [s]
 OPTIONS_DAYS = 2
 OPTIONS_SECONDS = 60.0
+# the tools users run on the scripts' files: the regions of the reference-
+# width model written as worker files (33.5 MB a file; the whole set of 1152
+# is ~39 GB), the demo's forecast steps, the demo's reservoirs (n=576, one
+# node per input; its slab ocean n=448 in blocks of 576) and training
+# discard [h], the steps diag_precip_bias synchronizes on (its default),
+# the run steps make_precip_debias skips, mldivide card against CPU
+# (relative, float64), and what the phase takes [s]
+WORKER_REGIONS = 24
+DEMO_FC_STEPS = 4
+DEMO_NODES = 576
+DEMO_OCEAN_BLOCK = 576
+DEMO_DISCARD_H = 24
+DEMO_CHUNK = 64
+PRECIP_SYNC = 56
+DEBIAS_SKIP = 4
+LINALG_TOL = 1e-10
+TOOLS_SECONDS = 150.0
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
@@ -840,7 +868,8 @@ def phase_full_physics_path(bindir, region_block, t_run0):
                 * (ENSEMBLE_WARM + ENSEMBLE_STEPS) + 2 * (2 * PREDICT_STEPS
                                                           + 2)) * per_window
     reserve = (COUPLED_STEPS * per_window + 120.0 + pipeline + ensemble
-               + LONG_TRAINING_SECONDS + SCRIPTS_SECONDS + OPTIONS_SECONDS)
+               + LONG_TRAINING_SECONDS + SCRIPTS_SECONDS + OPTIONS_SECONDS
+               + TOOLS_SECONDS)
     left = TARGET_SECONDS - (time.perf_counter() - t_run0) - reserve
     pairs = FULL_PAIRS[0]
     for cand in FULL_PAIRS[1:]:
@@ -1362,8 +1391,10 @@ def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
     kernel at the ocean's shapes, train_ocean over all regions, the gate,
     the model file there and back, COUPLED_WEEKS ocean weeks through the
     chunked loop with a writer and a checkpoint, one chunk with host syncs
-    forbidden, a week chunked again to a checkpoint, and the per-step runner
-    resuming that checkpoint. Returns the numbers it printed."""
+    forbidden (held against the run's first steps), and the next week
+    twice: the chunked loop carrying on from the run's carry in memory and
+    the per-step runner resuming the checkpoint file, the second held
+    against the first. Returns the numbers it printed."""
     import numpy as np
     import torch
     from speedyml_torch import (ScanHybridRunner, load_model, save_model,
@@ -1533,61 +1564,70 @@ def coupled_loop(sp, fc, hm, enso, truth, gv_truth, gv_model, x0, precip_t0,
             torch.cuda.set_sync_debug_mode("default")
         if not bool(res.safe_st.all()):
             raise AssertionError("the sync-free chunk tripped the gate")
-        print("one chunk of 2 steps under set_sync_debug_mode('error'): no "
-              "host sync between its first launch and the read of safe")
+        # the same launches from the same start give the coupled run's first
+        # two steps again
+        again = float(np.abs(res.atmo_st[:, 0].cpu().numpy()
+                             - temp[:2]).max())
+        if again > COUPLED_STEP1_TOL:
+            raise AssertionError(f"the first two steps run twice differ by "
+                                 f"{again}")
+        out["same_steps_twice_max_K"] = again
+        print(f"one chunk of 2 steps under set_sync_debug_mode('error'): no "
+              f"host sync between its first launch and the read of safe; "
+              f"against the coupled run's first two steps max |dT| "
+              f"{again:.3e} K")
         del res, xs
 
-        # the first week again, to a checkpoint: the same launches give the
-        # same week
-        ck_b = os.path.join(tmp, "b.npz")
-        run_b = scan.run(*start, spw, ocean=ocean, x_ocean=x_ocean0,
-                         sst_anom0=anom0, checkpoint_path=ck_b,
-                         checkpoint_every=spw)
-        if run_b["aborted"]:
-            raise AssertionError("the one-week run tripped the gate")
-        again = float(np.abs(run_b["atmo"][:, 0] - temp[:spw]).max())
-        anom1 = run_b["sst_anom"]
+        # the ocean's feedback after the chunked weeks, in its clip
+        anom1 = run_a["sst_anom"]
         clip = rcfg.slab_anom_clip
         if not (0.0 < np.abs(anom1).max() <= clip + 1e-6):
-            raise AssertionError(f"fed-back anomaly after week one: max "
-                                 f"{np.abs(anom1).max():.3e} K (clip {clip})")
-        if again > COUPLED_STEP1_TOL:
-            raise AssertionError(f"the same week twice differs by {again}")
+            raise AssertionError(f"fed-back anomaly after the chunked weeks: "
+                                 f"max {np.abs(anom1).max():.3e} K (clip "
+                                 f"{clip})")
         out.update(anom_week1_max_K=float(np.abs(anom1).max()),
-                   anom_week1_cells=int((np.abs(anom1) > 1e-6).sum()),
-                   same_week_twice_max_K=again)
+                   anom_week1_cells=int((np.abs(anom1) > 1e-6).sum()))
 
-        # the per-step runner resumes the chunked loop's checkpoint for the
-        # second week, beside the chunked loop's own second week
+        # the next week: the chunked loop carries on from run_a's carry in
+        # memory, and the per-step runner resumes the checkpoint file; the
+        # file-resumed week is held against the uninterrupted one
+        run_b = scan.run(run_a["x"], run_a["atmo_end"], run_a["logp_end"],
+                         run_a["precip_t"], run_a["date"], spw, ocean=ocean,
+                         x_ocean=run_a["x_ocean"],
+                         sst_anom0=run_a["sst_anom"], step0=n_steps)
+        if run_b["aborted"]:
+            raise AssertionError("the second chunked week tripped the gate")
         per_step = HybridRunner(hm, fc)
         t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t1.record()
-        run_c = per_step.resume_from(ck_b, spw, ocean=ocean)
+        run_c = per_step.resume_from(ck_a, spw, ocean=ocean)
         t2.record()
         torch.cuda.synchronize()
         out["per_step_ms"] = t1.elapsed_time(t2) / spw
         if run_c["aborted"] or not run_c["x"].is_cuda:
             raise AssertionError("the resumed run tripped the gate, or left "
                                  "the card")
-        d = run_c["atmo"][:, 0].cpu().numpy() - temp[spw:]
+        d = run_c["atmo"][:, 0].cpu().numpy() - run_b["atmo"][:, 0]
         step1, rms = float(np.abs(d[0]).max()), float(np.sqrt((d**2).mean()))
         out.update(resume_step1_max_K=step1, resume_week_rms_K=rms,
-                   resume_week_max_K=float(np.abs(d).max()))
+                   resume_week_max_K=float(np.abs(d).max()),
+                   week2_chunk_step_ms=run_b["chunk_ms"][0] / spw)
         if step1 > COUPLED_STEP1_TOL or rms > COUPLED_WEEK_RMS_TOL:
             raise AssertionError(
-                f"resumed per-step week against the chunked loop's second "
-                f"week: first step {step1:.3e} K (bound {COUPLED_STEP1_TOL}"
-                f"), week rms {rms:.3e} K (bound {COUPLED_WEEK_RMS_TOL})")
-        print(f"after week one the fed-back anomaly reaches "
+                f"per-step week resumed from the checkpoint against the "
+                f"chunked loop's uninterrupted second week: first step "
+                f"{step1:.3e} K (bound {COUPLED_STEP1_TOL}), week rms "
+                f"{rms:.3e} K (bound {COUPLED_WEEK_RMS_TOL})")
+        print(f"after the chunked week the fed-back anomaly reaches "
               f"{out['anom_week1_max_K']:.3f} K in "
-              f"{out['anom_week1_cells']} cells (clip {clip} K); the same "
-              f"week twice: max |dT| {again:.3e} K; per-step runner resumed "
-              f"from the chunked loop's checkpoint: {out['per_step_ms']:.1f} "
-              f"ms/step beside {out['chunk_step_ms'][-1]:.1f} chunked; "
-              f"against the chunked second week: first step max |dT| "
-              f"{step1:.3e} K (bound {COUPLED_STEP1_TOL}), week rms "
-              f"{rms:.3e} K (bound {COUPLED_WEEK_RMS_TOL}), max "
-              f"{out['resume_week_max_K']:.2f} K")
+              f"{out['anom_week1_cells']} cells (clip {clip} K); the second "
+              f"week: chunked from the carry in memory "
+              f"{out['week2_chunk_step_ms']:.1f} ms/step, per step from the "
+              f"checkpoint file {out['per_step_ms']:.1f} ms/step; the two "
+              f"apart by first step max |dT| {step1:.3e} K (bound "
+              f"{COUPLED_STEP1_TOL}), week rms {rms:.3e} K (bound "
+              f"{COUPLED_WEEK_RMS_TOL}), max {out['resume_week_max_K']:.2f} "
+              f"K")
     return out
 
 
@@ -2179,6 +2219,290 @@ def phase_scripts(bindir, work):
     return out
 
 
+def _worker_files(work):
+    """The reference-worker files at reference width: the first
+    WORKER_REGIONS regions of the scripts' trained model (a view of its
+    tensors and of its layout, made here) written by export_worker_files,
+    read back onto the card by import_worker_files equal, the circulant
+    shifts recovered, one ESN step of the imported model equal to the
+    original's. Returns the numbers it printed."""
+    import shutil
+
+    import torch
+    from speedyml_torch.domain.standardize import Standardizer
+    from speedyml_torch.io.weights import (export_worker_files,
+                                           import_worker_files, load_model)
+    from speedyml_torch.reservoir.esn import predict_step
+
+    R = WORKER_REGIONS
+    hm = load_model(os.path.join(work, "w.nc"))
+    p = hm.params
+    view = dataclasses.replace(
+        hm, layout=dataclasses.replace(hm.layout, R=R),
+        params=dataclasses.replace(p, a_idx=p.a_idx[:R], a_val=p.a_val[:R],
+                                   win=p.win[:R], wout=p.wout[:R].clone()),
+        stz=Standardizer(*(t[:R].clone() for t in hm.stz)))
+    del hm, p
+    torch.cuda.empty_cache()
+    wdir = os.path.join(work, "workers")
+    t0 = time.perf_counter()
+    export_worker_files(wdir, view, trial_name="smoke")
+    export_s = time.perf_counter() - t0
+    files = [n for n in os.listdir(wdir) if n.startswith("worker_")]
+    nbytes = sum(os.path.getsize(os.path.join(wdir, n)) for n in files)
+    t0 = time.perf_counter()
+    imp = import_worker_files(wdir, view.layout, view.rcfg,
+                              trial_name="smoke", ml_only=view.ml_only)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    if len(files) != R or not imp.params.wout.is_cuda:
+        raise AssertionError(f"{len(files)} worker files, imported onto "
+                             f"{imp.params.wout.device}")
+    a, b = view.params, imp.params
+    for name in ("a_idx", "a_val", "win", "wout"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"worker files: {name} read back unequal")
+    for x, y in zip(view.stz, imp.stz):
+        if not torch.equal(x, y):
+            raise AssertionError("worker files: statistics unequal")
+    if b.a_shift is None or tuple(b.a_shift) != tuple(a.a_shift):
+        raise AssertionError(f"circulant shifts {b.a_shift}, not "
+                             f"{a.a_shift}")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    L = view.layout
+    u = torch.randn(R, L.n_in, device="cuda", generator=g)
+    mv = torch.randn(R, L.n_out, device="cuda", generator=g)
+    x = 0.5 * torch.randn(R, a.n, device="cuda", generator=g)
+    xa, oa = predict_step(a, x, u, None if view.ml_only else mv)
+    xb, ob = predict_step(b, x, u, None if imp.ml_only else mv)
+    if not (torch.equal(xa, xb) and torch.equal(oa, ob)):
+        raise AssertionError("the imported model's ESN step differs")
+    shutil.rmtree(wdir)
+    out = dict(worker_regions=R, worker_files_gb=nbytes / 1e9,
+               worker_file_mb=nbytes / R / 1e6, worker_export_s=export_s,
+               worker_import_s=import_s)
+    print(f"worker files at reference width (n={a.n}, na={a.wout.shape[-1]}"
+          f"): {R} regions, {nbytes / 1e9:.3f} GB ({nbytes / R / 1e6:.1f} "
+          f"MB a file) written in {export_s:.1f} s, read back onto the card "
+          f"in {import_s:.1f} s: equal, shifts recovered, one ESN step "
+          f"bitwise [{CARD}]")
+    return out
+
+
+def phase_tools(bindir, work):
+    """The tools users run on the files the scripts phase left in `work`
+    (cache.npz, w.nc, run.nc), each through its main(argv) in this process
+    where it is a script: the reference-worker files at reference width
+    (the library functions, on a cut of WORKER_REGIONS regions);
+    demo_hybrid.py on the cache with --ocean, --out, --grads, --components
+    and its ML-only branch, the kernel held against its plain version at
+    the demo's training shapes first; diag_precip_bias.py then
+    make_precip_debias.py with `work` as the working directory;
+    diag_wetbias.py on the scripts' run and the demo's forecast; mldivide on
+    one region's float64 system, card against CPU; the native IO loader
+    built here, its decoder against numpy on the stand-in boundary files
+    and its gathers against numpy on the cache's packed series. Returns the
+    numbers it printed."""
+    import numpy as np
+    import torch
+    from speedyml_torch import ReservoirConfig
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.hybrid.experiment import QMIN, transform_and_pack
+    from speedyml_torch.io import boundary, native_loader
+    from speedyml_torch.io.output import read_forecast
+    from speedyml_torch.io.grads import read_grads
+    from speedyml_torch.reservoir.linalg import mldivide
+    from speedyml_torch.reservoir.slab import build_ocean_layout
+
+    def f(name):
+        return os.path.join(work, name)
+
+    out = _worker_files(work)
+    torch.cuda.empty_cache()
+
+    # the demo: the kernel at its training shapes, then the script
+    with np.load(f("cache.npz")) as z:
+        samples = z["atmo"].shape[0]
+    L = build_layout()
+    rcfg = ReservoirConfig()
+    ol = build_ocean_layout(L)
+    pairs = samples - DEMO_DISCARD_H // rcfg.timestep - 1
+    weeks = samples // (rcfg.timestep_slab // rcfg.timestep)
+    pairs_o = weeks - max(1, min(weeks // 4, 8)) - 1
+    na_o = ol.n_out + round(500 / ol.n_in) * ol.n_in
+    block = 192
+    shapes = {"demo_hybrid": (block, pairs, DEMO_CHUNK, L.n_out + DEMO_NODES),
+              "demo_ml_only": (block, pairs, DEMO_CHUNK, DEMO_NODES),
+              "demo_ocean": (DEMO_OCEAN_BLOCK, pairs_o,
+                             min(16, pairs_o), na_o),
+              # diag_hybrid.py at its default 120 samples: 104 for
+              # training, 4 discarded (it runs on the CPU tests alone)
+              "diag_hybrid": (block, 120 - 16 - 4 - 1, DEMO_CHUNK,
+                              L.n_out + DEMO_NODES)}
+    for name, (R, T, chunk, na) in shapes.items():
+        out[f"at_{name}_shape"] = dict(T=T, R=R, na=na, chunk=chunk,
+                                       **_check_kernel(R, T, chunk, na))
+    argv = ["--bindir", bindir, "--cache", f("cache.npz"), "--ocean",
+            "--fc-steps", str(DEMO_FC_STEPS), "--out", f("demo.nc"),
+            "--grads", f("demo"), "--components", f("comp")]
+    _, out["demo_s"], out["launches_demo"], text = _run_script(
+        "demo_hybrid", argv)
+    if "DEMO OK" not in text or "ml-only forecast ok" not in text:
+        raise AssertionError("the demo did not finish both forecasts")
+    fc = read_forecast(f("demo.nc"))
+    names = ("Temperature", "U-wind", "V-wind", "Specific-Humidity")
+    _check_fields("demo forecast", dict(
+        zip("tuvq", (fc[k] for k in names)), logp=fc["logp"],
+        sst=fc["SST"], p6hr=fc["p6hr"]))
+    if fc["Temperature"].shape[0] != DEMO_FC_STEPS:
+        raise AssertionError(f"{fc['Temperature'].shape[0]} demo steps")
+    a3, a2 = read_grads(f("demo"), *fc["Temperature"].shape[1:])
+    if not (np.array_equal(a3[:, 0], fc["Temperature"])
+            and np.array_equal(a2[:, 0], fc["logp"])):
+        raise AssertionError("the demo's GrADS file is not its forecast")
+    ml, sp = read_forecast(f("comp_ml.nc")), read_forecast(f("comp_p.nc"))
+    worst = 0.0
+    for k in names + ("logp",):
+        total = ml[k].astype(np.float64) + sp[k]
+        if k == "Specific-Humidity":
+            total = np.maximum(total, QMIN)
+        err = float(np.abs(total - fc[k]).max() / np.abs(fc[k]).max())
+        worst = max(worst, err)
+        if not err <= 1e-5:
+            raise AssertionError(f"demo components: {k} off by {err:.2e} "
+                                 f"of its scale")
+    out["demo_components_err"] = worst
+    print(f"demo: {DEMO_FC_STEPS} hybrid steps with the ocean and the "
+          f"ML-only branch in {out['demo_s']:.1f} s, {out['launches_demo']} "
+          f"kernel launches; forecast, GrADS and component files read back, "
+          f"components sum to the forecast to {worst:.2e} of scale [{CARD}]")
+
+    # the precip-debias chain, in `work` as users run it
+    os.makedirs(f("data"), exist_ok=True)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        _, out["diag_precip_bias_s"], _, text = _run_script(
+            "diag_precip_bias", [
+                "--bindir", bindir, "--cache", f("cache.npz"), "--weights",
+                f("w.nc"), "--n", str(samples), "--holdout",
+                str(SCRIPTS_HOLDOUT), "--sync", str(PRECIP_SYNC), "--out",
+                f("precip_bias.json")])
+        _, out["make_precip_debias_s"], _, text = _run_script(
+            "make_precip_debias", [
+                "--run", f("run.nc"), "--cache", f("cache.npz"), "--skip",
+                str(DEBIAS_SKIP), "--validate", f("run.nc")])
+    finally:
+        os.chdir(here)
+    with np.load(f("data/precip_bias.npz")) as z:
+        debias = z["debias"]
+        sig = z["log_resid_std"]
+    if debias.shape != (L.il, L.ix) or not np.isfinite(debias).all() \
+            or debias.min() < 0.0 or not np.isfinite(sig).all():
+        raise AssertionError(f"debias field {debias.shape}, range "
+                             f"{debias.min()}..{debias.max()}")
+    deb = _json_printed(text)
+    out.update(debias_max=float(debias.max()),
+               debias_cells=int((debias > 0).sum()),
+               run_mm_day=deb["run_mm_day"],
+               run_mm_day_corrected=deb["run_mm_day_corrected"])
+    rc, out["diag_wetbias_s"], _, text = _run_script("diag_wetbias", [
+        "--bindir", bindir, "--coupled", f("run.nc"), "--hybrid",
+        f("demo.nc"), "--cache", f("cache.npz"), "--holdout",
+        str(SCRIPTS_HOLDOUT), "--skip-days", "0"])
+    wet = _json_printed(text)
+
+    def numbers(o):
+        if isinstance(o, dict):
+            return [x for v in o.values() for x in numbers(v)]
+        if isinstance(o, list):
+            return [x for v in o for x in numbers(v)]
+        return [o] if isinstance(o, (int, float)) else []
+
+    if not np.isfinite(numbers(wet)).all():
+        raise AssertionError(f"diag_wetbias: {wet}")
+    print(f"precip debias: field up to {out['debias_max']:.3f} in "
+          f"{out['debias_cells']} cells, run {deb['run_mm_day']} -> "
+          f"{deb['run_mm_day_corrected']} mm/day; diag_precip_bias "
+          f"{out['diag_precip_bias_s']:.1f} s, make_precip_debias "
+          f"{out['make_precip_debias_s']:.1f} s, diag_wetbias "
+          f"{out['diag_wetbias_s']:.1f} s [{CARD}]")
+
+    # mldivide on one region's system, card against CPU
+    na = L.n_out + round(rcfg.nodes_per_input / L.n_in) * L.n_in
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    m = torch.randn(na, na, device="cuda", generator=g, dtype=torch.float64)
+    A = m @ m.mT / na + 0.5 * torch.eye(na, device="cuda",
+                                        dtype=torch.float64)
+    B = torch.randn(L.n_out, na, device="cuda", generator=g,
+                    dtype=torch.float64)
+    mldivide(A, B)
+    out["mldivide_ms"] = _cuda_ms(lambda: mldivide(A, B), 3)
+    X = mldivide(A, B).cpu()
+    t0 = time.perf_counter()
+    Xc = mldivide(A.cpu(), B.cpu())
+    out["mldivide_cpu_s"] = time.perf_counter() - t0
+    rel = float((X - Xc).norm() / Xc.norm())
+    if not rel <= LINALG_TOL:
+        raise AssertionError(f"mldivide card against CPU: {rel:.2e}")
+    out["mldivide_rel_err"] = rel
+    del m, A, B
+    print(f"mldivide ({na}, {na}) float64 with {L.n_out} right-hand sides:"
+          f" {out['mldivide_ms']:.2f} ms on the card by CUDA events, "
+          f"{out['mldivide_cpu_s']:.2f} s on the host; relative difference "
+          f"{rel:.2e} (bound {LINALG_TOL}) [{CARD}]")
+
+    # the native loader: built on this machine (get_lib); its build timed
+    # once more into a directory of its own
+    native_loader.get_lib()
+    build_dir = native_loader.BUILD_DIR
+    with tempfile.TemporaryDirectory() as d:
+        native_loader.BUILD_DIR = Path(d)
+        try:
+            t0 = time.perf_counter()
+            native_loader.build()
+            out["native_build_s"] = time.perf_counter() - t0
+        finally:
+            native_loader.BUILD_DIR = build_dir
+    # the stand-in boundary files through the native reader and through the
+    # model's (numpy) reader: equal, each timed over the whole set
+    paths = [os.path.join(bindir, n) for n in sorted(os.listdir(bindir))]
+    decoded = {}
+    for label, read in (("native", native_loader.read_records_native),
+                        ("numpy", boundary.read_boundary_records)):
+        t0 = time.perf_counter()
+        decoded[label] = [read(p, L.ix, L.il) for p in paths]
+        out[f"{label}_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    for p, a, b in zip(paths, decoded["native"], decoded["numpy"]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"native decode of {p} differs")
+    boundary_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    with np.load(f("cache.npz")) as z:
+        gv = transform_and_pack(L, *(torch.as_tensor(z[k]) for k in (
+            "atmo", "logp", "precip", "sst", "tisr")),
+            rcfg.precip_epsilon).numpy()
+    idx = L.input_index
+    t0 = time.perf_counter()
+    stream = native_loader.GvStream.write_cache(f("gv.cache"), gv)
+    nt = min(64, samples - 8)
+    got = stream.gather(idx, 8, nt)
+    out["gv_stream_s"] = time.perf_counter() - t0
+    stream.close()
+    want = gv[8:8 + nt][:, idx]
+    if not (np.array_equal(got, want) and np.array_equal(
+            native_loader.mem_gather(gv, idx, 8, nt), want)):
+        raise AssertionError("native gathers differ from numpy")
+    os.remove(f("gv.cache"))
+    print(f"native IO loader built in {out['native_build_s']:.1f} s; the "
+          f"stand-in boundary files ({len(paths)}, {boundary_mb:.2f} MB) "
+          f"decode as numpy does: {out['native_decode_ms']:.2f} ms native, "
+          f"{out['numpy_decode_ms']:.2f} ms numpy on the host; GvStream and "
+          f"mem_gather give numpy's ({nt}, {idx.shape[0]}, {idx.shape[1]}) "
+          f"block of the cache's packed series ({gv.nbytes / 1e6:.0f} MB "
+          f"written and gathered in {out['gv_stream_s']:.2f} s)")
+    return out
+
+
 def phase_free_options(bindir):
     """The full-physics model with SPPT, random diabatic forcing and time
     means for OPTIONS_DAYS days: its fields finite and in bounds, the GrADS
@@ -2402,10 +2726,13 @@ def main():
         full, n_full, n_full_single = counted(
             "full-physics path", phase_full_physics_path, bindir,
             region_block, t_run0)
-        # the scripts, then the pipeline on their cache and block files
+        # the scripts, then the tools and the pipeline on their cache,
+        # model, run and block files
         with tempfile.TemporaryDirectory() as work:
             scripts, n_scripts, n_scripts_single = counted(
                 "scripts", phase_scripts, bindir, work)
+            tools, n_tools, n_tools_single = counted(
+                "tools", phase_tools, bindir, work)
             pipe, n_pipe, n_pipe_single = counted(
                 "pipeline", phase_pipeline, bindir, work)
         options = timed("free model options", phase_free_options, bindir)
@@ -2440,7 +2767,7 @@ def main():
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
                           n_dry + n_full + n_ocean + n_pipe + n_scripts
-                          + n_long,
+                          + n_tools + n_long,
                           launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
                           launches_ocean_training=n_ocean,
@@ -2448,6 +2775,8 @@ def main():
                           launches_scripts=n_scripts,
                           launches_scripts_train=scripts["launches_train"],
                           launches_scripts_ocean=scripts["launches_ocean"],
+                          launches_tools=n_tools,
+                          launches_demo=tools["launches_demo"],
                           launches_long_training=n_long,
                           at_long_shape=long_tr,
                           at_dry_shape=at_dry,
@@ -2456,15 +2785,19 @@ def main():
                           at_pipeline_shape=at_scripts,
                           at_scripts_train_shape=at_scripts,
                           at_scripts_ocean_shape=scripts.pop(
-                              "at_ocean_shape"))],
+                              "at_ocean_shape"),
+                          **{k: tools.pop(k) for k in list(tools)
+                             if k.startswith("at_")})],
         "off_path": [entry("accumulate_ss", "speedyml/ops/accum.py:51",
                            n_dry_single + n_full_single + n_pipe_single
-                           + n_scripts_single + n_long_single)],
+                           + n_scripts_single + n_tools_single
+                           + n_long_single)],
         "full_physics": full, "pipeline": pipe,
         "scripts": {k: v for k, v in scripts.items()
                     if not isinstance(v, dict)},
         "model_options": {k: v for k, v in options.items()
-                          if not isinstance(v, dict)}}))
+                          if not isinstance(v, dict)},
+        "tools": tools}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

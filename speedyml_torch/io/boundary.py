@@ -1,5 +1,5 @@
 """Readers for the SPEEDY climatological boundary-condition files (the port's
-own copy of speedyml/io/boundary.py, numpy decoder only).
+own copy of speedyml/io/boundary.py).
 
 The reference reads these as direct-access little-endian real*4 records of one
 latitude row each, stored north->south and flipped to south->north on read
@@ -13,13 +13,15 @@ import os
 
 import numpy as np
 
-
 def read_boundary_records(path: str, ix: int = 96, il: int = 48) -> np.ndarray:
     """Read all (nfields, il, ix) records from a fort.2x file.
 
     Rows are flipped so row 0 = southernmost latitude (the model's internal
     convention), mirroring load_boundary_file's `inp(:,nlat+1-i)`.
-    Values <= -999 (missing) are zeroed.
+    Values <= -999 (missing) are zeroed. Decoded in numpy: the native
+    reader (io/native_loader.read_records_native) gives the same array,
+    but would make every model construction depend on a C++ compiler for
+    six files of about 0.2 MB.
     """
     raw = np.fromfile(path, dtype="<f4")
     nrec = raw.size // (ix * il)

@@ -3,6 +3,7 @@ give on the same inputs: exact equality, since they are the same numpy code.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from speedyml_torch.coupler import anomaly as tanom
 from speedyml_torch.physics import constants as tphys
 from speedyml_torch.reservoir import generate as tgen
 from speedyml_torch.transforms import tables as ttab
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _assert_same_fields(a, b):
@@ -288,3 +291,13 @@ def test_era_files(tmp_path):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_native_source_copy():
+    """The port's copy of the native IO runtime is byte for byte the
+    repository's native/speedy_io.cpp."""
+    with open(os.path.join(REPO, "native", "speedy_io.cpp"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "speedyml_torch", "io", "csrc",
+                           "speedy_io.cpp"), "rb") as f:
+        assert f.read() == want

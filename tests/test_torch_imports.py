@@ -28,13 +28,16 @@ SLICE_MODULES = [
     "io.output", "io.weights", "hybrid.fastloop",
     "io.era", "hybrid.era_training", "hybrid.ensemble", "utils.diag",
     "utils.analysis", "utils.climate", "utils.timemean", "io.grads",
-    "physics.randfor", "physics.sppt",
+    "physics.randfor", "physics.sppt", "io.native_loader",
+    "reservoir.linalg",
 ]
 
 # the scripts of scripts_torch that the source scan must reach
 SCRIPTS = ["accum_accuracy", "profile_slice", "analyze_forecast",
            "score_run", "decade_table", "climate_check", "enso_eval",
-           "train_from_era", "reference_scale"]
+           "train_from_era", "reference_scale", "export_workers",
+           "demo_hybrid", "diag_precip_bias", "make_precip_debias",
+           "diag_wetbias", "diag_hybrid", "coupled_probe", "coupled_probe2"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -167,23 +170,65 @@ _ENTRY_POINTS = {
     "zero_state": ("import torch; from speedyml_torch.dynamics.state "
                    "import zero_state; zero_state(8, 31, 32, 1, "
                    "torch.float32)"),
+    "import_worker_files": (
+        "import tempfile, torch; from speedyml_torch import ReservoirConfig; "
+        "from speedyml_torch.domain.decomposition import build_layout; "
+        "from speedyml_torch.domain.standardize import Standardizer; "
+        "from speedyml_torch.hybrid.experiment import HybridModel; "
+        "from speedyml_torch.io.weights import export_worker_files, "
+        "import_worker_files; "
+        "from speedyml_torch.reservoir.generate import generate_esn; "
+        "L = build_layout(12, 6, 2); p = generate_esn(0, L.R, L.n_in, "
+        "L.n_out, 0, m_target=L.n_in, device='cpu'); "
+        "s = Standardizer(*(torch.ones(L.R, n) for n in "
+        "(L.n_in, L.n_in, L.n_out, L.n_out))); d = tempfile.mkdtemp(); "
+        "export_worker_files(d, HybridModel(L, p, s, ReservoirConfig(), "
+        "True)); print('written', flush=True); "
+        "import_worker_files(d, L, ReservoirConfig())"),
+    "mldivide": ("import numpy as np; from speedyml_torch.reservoir.linalg "
+                 "import mldivide; mldivide(np.eye(3), np.ones((2, 3)))"),
 }
 
 
+# runs every entry point's snippet in one fresh interpreter, each in a
+# namespace of its own; prints {name: the traceback it raised, or None}
+_ENTRY_PROBE = """
+import json, sys, traceback
+out = {}
+for name, code in json.loads(sys.argv[1]).items():
+    try:
+        exec(code, {})
+        out[name] = None
+    except BaseException:
+        out[name] = traceback.format_exc()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def entry_point_errors():
+    """What each entry point raised without `device`, from one subprocess
+    (a process without jax or a card: torch starts there once for all)."""
+    import json
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _ENTRY_PROBE,
+                          json.dumps(_ENTRY_POINTS)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
-def test_entry_point_without_device_needs_the_card(name):
+def test_entry_point_without_device_needs_the_card(name, entry_point_errors):
     """On a machine without a card an entry point called without `device`
     raises torch's own error; it does not fall back to the CPU. (With a card
     the same call succeeds and this test has nothing to show.)"""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", _ENTRY_POINTS[name]],
-                         cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert res.returncode != 0, f"{name} ran without a card"
-    assert "cuda" in res.stderr.lower(), res.stderr[-400:]
+    err = entry_point_errors[name]
+    assert err is not None, f"{name} ran without a card"
+    assert "cuda" in err.lower(), err[-400:]
 
 
 @pytest.mark.cuda

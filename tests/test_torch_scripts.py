@@ -1,8 +1,8 @@
 """scripts_torch/reference_scale.py end to end on the CPU (--cpu), on seeded
-stand-in boundary files: data -> train -> predict -> coupled
---ocean-train-only -> coupled, each phase through the script's own entry
-point, at the reference grid (1152 regions) and the smallest sizes that
-still give the ocean its training weeks:
+stand-in boundary files: data -> train -> coupled --ocean-train-only ->
+coupled, then predict on what they wrote, each phase through the script's
+own entry point, at the reference grid (1152 regions) and the smallest sizes
+that still give the ocean its training weeks:
 
   --samples 14 --holdout 4 --spinup-days 0: 10 training samples, 4 held out;
   --m 60 --discard 6 --ml-only: n = 576 nodes (one per input), 1-step
@@ -22,13 +22,18 @@ HybridRunner on the loaded model to 1e-6 of each field's scale; the coupled
 run's forecast file read by both packages' readers; finite fields inside the
 safety bounds.
 
+The phases' files are made once per session (script_files) and shared with
+the test modules of the other scripts (test_torch_demo, test_torch_diag).
 """
 
 import contextlib
+import fcntl
+import functools
 import importlib.util
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -48,6 +53,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 N_SAMPLES, HOLDOUT, FC_STEPS, COUPLED_STEPS = 14, 4, 4, 4
 STEP_TOL = 1e-6
+# the ocean of the coupled phases: 12-hour weeks of 2 steps, n=60
+OCEAN_ARGS = ["--slab-hours", "12", "--ocean-m", "60", "--ocean-block", "0"]
 
 
 def load_script(name):
@@ -58,50 +65,112 @@ def load_script(name):
     return mod
 
 
-@pytest.fixture(scope="module")
-def pipeline(tmp_path_factory):
-    d = tmp_path_factory.mktemp("refscale")
+def _run_phases(d):
+    """data -> train -> coupled --ocean-train-only -> coupled into `d`:
+    the phases' exit codes and output, the files' paths, and the arguments
+    every phase shares."""
     bindir = write_synthetic_boundary(str(d / "bc"), seed=8)
     rs = load_script("reference_scale")
     p = {k: str(d / v) for k, v in (
         ("cache", "cache.npz"), ("weights", "w.nc"), ("ml", "w_ml.nc"),
-        ("results", "predict.json"), ("coupled", "coupled.json"),
-        ("out", "run.nc"))}
+        ("coupled", "coupled.json"), ("out", "run.nc"))}
     common = ["--bindir", bindir, "--cache", p["cache"], "--cpu",
               "--holdout", str(HOLDOUT), "--m", "60", "--discard", "6",
               "--weights", p["weights"], "--ml-weights", p["ml"],
               "--ml-only"]
-    ocean = ["--slab-hours", "12", "--ocean-m", "60", "--ocean-block", "0"]
     phases = [
         ("data", ["data", "--samples", str(N_SAMPLES), "--spinup-days", "0",
                   "--enso-amp", "1.2"]),
         ("train", ["train", "--chunk", "16", "--region-block", "192"]),
         ("ocean", ["coupled", "--ocean-train-only", "--results",
-                   p["coupled"]] + ocean),
+                   p["coupled"]] + OCEAN_ARGS),
         ("coupled", ["coupled", "--fc-steps", str(COUPLED_STEPS), "--out",
                      p["out"], "--results", p["coupled"], "--stream"]
-         + ocean),
+         + OCEAN_ARGS),
     ]
-    out = {"paths": p, "rc": {}, "stdout": {}, "bindir": bindir}
-    for label, argv in phases[:2]:
+    out = {"paths": p, "rc": {}, "stdout": {}, "bindir": bindir,
+           "common": common}
+    for label, argv in phases:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             out["rc"][label] = rs.main(argv + common)
         out["stdout"][label] = buf.getvalue()
+    return out
+
+
+@contextlib.contextmanager
+def jax_speedy_on(bindir):
+    """Inside this block the JAX scripts' `Speedy(ModelConfig(...))`, which
+    builds on a fixed boundary directory, builds on `bindir` instead: the
+    name `speedyml.model.Speedy` is patched for the block, and the JAX
+    package is not otherwise touched."""
+    import speedyml.model as jmodel
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmodel, "Speedy",
+                   functools.partial(jmodel.Speedy, bindir=bindir))
+        yield
+
+
+def _decimals(x):
+    text = repr(float(x))
+    return 0 if "e" in text else len(text.split(".")[1])
+
+
+def same_rounded(got, want):
+    """The same JSON object, every number equal to one unit in the last
+    decimal place either side shows: the scripts round their numbers, and
+    two packages' floats may fall either side of a rounding boundary."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            same_rounded(got[k], want[k])
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            same_rounded(a, b)
+    elif isinstance(want, float):
+        unit = 10.0 ** -max(_decimals(got), _decimals(want))
+        assert abs(got - want) <= unit * (1 + 1e-9), (got, want)
+    else:
+        assert got == want
+
+
+def script_files(tmp_path_factory):
+    """The files reference_scale.py's phases write (the cache, the model
+    file, the ocean's blocks and the coupled run's forecast file), made once
+    per test session: the test modules that read them share one set. Under
+    pytest-xdist the workers share the session's temporary root, one of
+    them makes the files and the others wait on a lock. Returns
+    _run_phases' record."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / "refscale_files"
+    record = d / "phases.json"
+    with open(str(root / "refscale_files.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not record.exists():
+            shutil.rmtree(d, ignore_errors=True)   # an earlier failed try
+            d.mkdir()
+            record.write_text(json.dumps(_run_phases(d)))
+        return json.loads(record.read_text())
+
+
+@pytest.fixture(scope="module")
+def pipeline(tmp_path_factory):
+    out = script_files(tmp_path_factory)
+    rs = load_script("reference_scale")
+    results = str(tmp_path_factory.mktemp("predict") / "predict.json")
+    out["paths"]["results"] = results
     # predict through the phase function that main() calls, which hands
     # back the trajectory
     args = rs.parse_args(["predict", "--fc-steps", str(FC_STEPS),
-                          "--no-fast-loop", "--results", p["results"]]
-                         + common)
+                          "--no-fast-loop", "--results", results]
+                         + out["common"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out["predict"] = rs.phase_predict(args, CPU)
     out["stdout"]["predict"] = buf.getvalue()
-    for label, argv in phases[2:]:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            out["rc"][label] = rs.main(argv + common)
-        out["stdout"][label] = buf.getvalue()
     return out
 
 
