@@ -73,7 +73,15 @@ readout 1152 x 136 x 5896):
     random standardized series): the drive folds segment by segment, its
     peak memory held to the accumulators plus two segments and the block's
     to its budget plus two segments, the kernel's
-    launches counted and its time over the whole series beside its bound.
+    launches counted and its time over the whole series beside its bound;
+  * the multi-device layer (speedyml_torch.parallel), its ranks processes
+    of their own on the one card: the composed hybrid step at reference
+    width with one rank over NCCL and four ranks over gloo (NCCL refuses
+    two ranks on one GPU), dry and with full physics, held against the
+    single-device step on the card, with its collectives per step; the
+    sharded training drive at dp=4 and at dp=2 with tp=2, gathered and
+    held bitwise against the single-device fold; the dry run's six phases
+    on the four ranks.
 
 Before these, the column physics on the card (with the random diabatic
 forcing, and a time-mean sample) is held against the same code on the CPU
@@ -222,6 +230,26 @@ PRECIP_SYNC = 56
 DEBIAS_SKIP = 4
 LINALG_TOL = 1e-10
 TOOLS_SECONDS = 150.0
+# the multi-device layer (speedyml_torch.parallel) on the one card: the
+# composed hybrid step at reference width with 1 rank over NCCL and 4 ranks
+# over gloo (NCCL refuses two ranks on one GPU), its warm-up and timed
+# steps, its bounds against the single-device step on the card (of each
+# output's largest magnitude: the dry step's largest difference,
+# tests/test_composed.py:110-113; the full-physics step's rms difference,
+# tests/test_composed.py:169-172's 2e-3, since in float32 the window's
+# moist triggers can turn the sharded transforms' rounding into a whole
+# column's difference, ROADMAP note (c)); the sharded training drive's
+# regions, pairs and fold chunk (bitwise against the single-device fold);
+# and what the phase takes [s]
+MD_WORLD = 4
+MD_WARM = 1
+MD_STEPS = 2
+MD_DRY_REL = 3e-4
+MD_PHYSICS_RMS = 2e-3
+MD_TRAIN_REGIONS = 8
+MD_TRAIN_PAIRS = 64
+MD_TRAIN_CHUNK = 32
+MD_SECONDS = 240.0
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, dense TF32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
@@ -2659,6 +2687,310 @@ def phase_free_options(bindir):
 
 
 
+def _md_setup(bindir, dev):
+    """The multi-device phase's model, the same in every process from the
+    seed: the float32 model on the stand-in files at its first date, the
+    reference-width reservoirs (generate_esn) with a 0.003-scale random
+    readout and a standardizer anchored to the start state, and the step's
+    inputs. Returns (sp, hm, x0, inputs) with inputs (atmo, logp, precip_t,
+    sst, tisr)."""
+    import numpy as np
+    import torch
+    from speedyml_torch import ModelConfig, ReservoirConfig
+    from speedyml_torch.domain.decomposition import (build_layout,
+                                                     pack_global)
+    from speedyml_torch.domain.standardize import Standardizer
+    from speedyml_torch.hybrid.experiment import HybridModel
+    from speedyml_torch.hybrid.state_io import extract
+    from speedyml_torch.model import Speedy
+    from speedyml_torch.physics.radiation import diurnal_tisr
+    from speedyml_torch.reservoir.generate import generate_esn
+
+    sp = Speedy(ModelConfig(), bindir, device=dev)
+    sp.initialize(1982, 1)
+    rcfg = ReservoirConfig()
+    L = build_layout(radang_deg=np.degrees(np.asarray(sp.dy.tables.radang)))
+    gs = extract(sp.dy, sp.state)
+    atmo = torch.stack([gs.t, gs.u, gs.v, torch.clamp(gs.q, min=1e-6)])
+    logp = gs.logp
+    pr = torch.zeros_like(logp)
+    sst = np.maximum(np.asarray(sp.coupler.sst_am, np.float32), 272.0)
+    tisr = np.asarray(diurnal_tisr(sp.date.tyear, sp.date.ihour,
+                                   sp.dy.tables.gsin, sp.dy.tables.gcos,
+                                   L.ix), np.float32)
+    gv0 = pack_global(L, atmo, logp, pr, torch.as_tensor(sst, device=dev),
+                      torch.as_tensor(tisr, device=dev))
+    params = generate_esn(SEED, L.R, L.n_in, L.n_out, L.n_out,
+                          m_target=rcfg.nodes_per_input, deg=rcfg.degree,
+                          sigma=rcfg.sigma, leakage=rcfg.leakage,
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    params.wout = 0.003 * torch.randn(params.wout.shape, device=dev,
+                                      generator=g)
+    idx, tidx = L.maps(dev)
+    stz = Standardizer(in_mean=gv0[idx],
+                       in_std=torch.full(idx.shape, 5.0, device=dev),
+                       out_mean=gv0[tidx],
+                       out_std=torch.ones(tidx.shape, device=dev))
+    hm = HybridModel(L, params, stz, rcfg)
+    x0 = 0.1 * torch.randn((L.R, params.n), device=dev, generator=g)
+    return sp, hm, x0, (atmo, logp, pr, sst, tisr)
+
+
+def _md_composed(sp, hm, x0, inputs, lat, physics):
+    """The composed step on this rank: one warm-up, then MD_STEPS timed
+    steps from the same inputs (host clock between a barrier and the
+    card's synchronization). Returns its ms, collectives per step, flag,
+    and (the gathers outside the timed steps) the whole outputs on the
+    host."""
+    import torch
+    import torch.distributed as dist
+    from speedyml_torch.parallel.comm import counts
+    from speedyml_torch.parallel.composed import ComposedHybridStep
+    from speedyml_torch.parallel.mesh import Placement, gather, shard
+
+    comp = ComposedHybridStep(hm, sp, lat, physics=physics)
+    regions = Placement(lat, ("lat",))
+    x = shard(x0, regions)
+    surf = comp.shard_surface(sp.surf)
+    for _ in range(MD_WARM):
+        comp.step(x, *inputs, surf, sp.forcing)
+    comp.comm.reset()
+    ms = []
+    for _ in range(MD_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = comp.step(x, *inputs, surf, sp.forcing)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    per_step = {k: {n: v // MD_STEPS for n, v in c.items()}
+                for k, c in counts(comp.comm).items()}
+    for k, v in comp.comm.seconds.items():
+        per_step[k]["ms"] = 1e3 * v / MD_STEPS
+    x1, atmo, logp, pr, safe = out
+    return dict(ms=ms, comm=per_step, safe=bool(safe),
+                out=[gather(x1, regions).cpu(), atmo.cpu(), logp.cpu(),
+                     pr.cpu()])
+
+
+def _md_training(mesh, dev):
+    """The sharded training drive on a block of MD_TRAIN_REGIONS regions at
+    reference width, gathered, bitwise against the single-device drive
+    (rank 0 holds it); returns the rank's kernel launches."""
+    import torch
+    from speedyml_torch import ReservoirConfig
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.ops import accum
+    from speedyml_torch.parallel import reservoir as pres
+    from speedyml_torch.parallel.mesh import (fold_sharding, gather,
+                                              series_sharding, shard,
+                                              shard_params, state_sharding)
+    from speedyml_torch.reservoir.generate import generate_esn
+    from speedyml_torch.reservoir.training import (drive_and_accumulate,
+                                                   init_normal_eq)
+
+    L, rcfg = build_layout(), ReservoirConfig()
+    R, T = MD_TRAIN_REGIONS, MD_TRAIN_PAIRS
+    params = generate_esn(SEED, R, L.n_in, L.n_out, L.n_out,
+                          m_target=rcfg.nodes_per_input, deg=rcfg.degree,
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    u, y, m = (torch.randn((T, R, k), device=dev, generator=g)
+               for k in (L.n_in, L.n_out, L.n_out))
+    series = series_sharding(mesh)
+    sp = shard_params(params, mesh)
+    acc = pres.init_normal_eq(sp, L.n_out, L.n_out, mesh)
+    accum.accumulate_ss_scan.launches = 0
+    t0 = time.perf_counter()
+    acc = pres.drive_and_accumulate(sp, acc, shard(u, series),
+                                    shard(y, series), shard(m, series),
+                                    mesh, chunk=MD_TRAIN_CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = accum.accumulate_ss_scan.launches
+    whole = [gather(getattr(acc, f), fold_sharding(mesh))
+             for f in ("ss_hi", "ss_lo", "sy_hi", "sy_lo")]
+    whole.append(gather(acc.x, state_sharding(mesh)))
+    del acc
+    same = None
+    if mesh.coord("dp") == 0 and mesh.coord("tp") == 0:
+        ref = drive_and_accumulate(params, init_normal_eq(params, L.n_out),
+                                   u, y, m, chunk=MD_TRAIN_CHUNK)
+        same = [bool(torch.equal(a, b)) for a, b in zip(whole, ref)]
+        del ref
+    del whole
+    torch.cuda.empty_cache()
+    return dict(launches=launches, seconds=seconds, same=same)
+
+
+def md_rank(rank, world, device, bindir, more):
+    """One rank of the multi-device phase: the composed step, dry and with
+    full physics; with `more`, also the sharded training drive (dp=world;
+    dp=world/2 with tp=2) and the dry run's six phases."""
+    import torch
+    from speedyml_torch.parallel.dryrun import dryrun_rank
+    from speedyml_torch.parallel.mesh import Mesh, make_mesh
+
+    t0 = time.perf_counter()
+    sp, hm, x0, inputs = _md_setup(bindir, device)
+    out = dict(setup_s=time.perf_counter() - t0)
+    lat = Mesh((world,), ("lat",))
+    for label, physics in (("dry", False), ("physics", True)):
+        out[label] = _md_composed(sp, hm, x0, inputs, lat, physics)
+        if rank:
+            out[label].pop("out")
+    del sp, hm, x0, inputs
+    torch.cuda.empty_cache()
+    if more:
+        out["training"] = {
+            f"dp={world // tp}, tp={tp}": _md_training(
+                make_mesh(world, tp=tp), device) for tp in (1, 2)}
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun_rank(rank, world, device)
+        out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_multi_device(bindir):
+    """The multi-device layer on the one card: the composed hybrid step at
+    reference width with 1 rank over NCCL and MD_WORLD ranks over gloo,
+    every rank on cuda:0, each held against the single-device step there;
+    with the MD_WORLD ranks also the sharded training drive (bitwise against
+    the single-device fold) and the dry run's six phases. Returns the numbers, the kernel's launches in the
+    sharded drives among them."""
+    import torch
+    from speedyml_torch.hybrid.forecast import SpeedyForecaster
+    from speedyml_torch.parallel.composed import single_device_step
+    from speedyml_torch.parallel.launch import run_ranks
+
+    dev = torch.device("cuda")
+    sp, hm, x0, inputs = _md_setup(bindir, dev)
+    want = {}
+    for label, physics in (("dry", False), ("physics", True)):
+        fc = SpeedyForecaster(sp, hours=hm.rcfg.timestep, physics=physics)
+        res = single_device_step(hm, fc, x0, *inputs, sp.surf, sp.forcing)
+        if not bool(res[4]):
+            raise AssertionError(f"multi-device: the single-device {label} "
+                                 f"step tripped the safety gate")
+        want[label] = [t.cpu() for t in res[:4]]
+    del sp, hm, x0, inputs, res
+    torch.cuda.empty_cache()
+
+    out = {"card": CARD}
+    names = ("x", "atmo", "logp", "precip_t")
+    for world, backend in ((1, "nccl"), (MD_WORLD, "gloo")):
+        t0 = time.perf_counter()
+        ranks = run_ranks(md_rank, world, backend, ["cuda:0"] * world,
+                          args=(bindir, world > 1))
+        key = f"W={world} {backend}"
+        label_w = ("1 rank" if world == 1
+                   else f"{world} ranks sharing one card")
+        res = dict(seconds=time.perf_counter() - t0,
+                   setup_s=max(r["setup_s"] for r in ranks))
+        for label in ("dry", "physics"):
+            r0 = ranks[0][label]
+            if not all(r[label]["safe"] for r in ranks):
+                raise AssertionError(f"multi-device {key} {label}: the "
+                                     f"safety gate tripped")
+            errs = {}
+            for name, got, ref in zip(names, r0["out"], want[label]):
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"multi-device {key} {label} "
+                                         f"{name} is not finite")
+                d = (got - ref).abs()
+                scale = max(float(ref.abs().max()), 1e-30)
+                errs[name] = dict(max=float(d.max()) / scale,
+                                  rms=float(d.square().mean().sqrt())
+                                  / scale)
+                err = errs[name]["rms" if label == "physics" else "max"]
+                bound = MD_PHYSICS_RMS if label == "physics" else MD_DRY_REL
+                if not err <= bound:
+                    raise AssertionError(
+                        f"multi-device {key} {label} {name}: {err:.3e} of "
+                        f"scale from the single-device step (bound "
+                        f"{bound})")
+            ms = [max(r[label]["ms"][i] for r in ranks)
+                  for i in range(MD_STEPS)]
+            res[label] = dict(ms=ms, comm=r0["comm"], err=errs)
+            comm = ", ".join(f"{k} {v['calls']} ({v['bytes']} bytes, "
+                             f"{v['ms']:.1f} ms inside the calls)"
+                             for k, v in r0["comm"].items())
+            print(f"multi-device, composed {label} step at reference width, "
+                  f"{label_w} ({backend}): {statistics.median(ms):.1f} "
+                  f"ms/step (steps {', '.join(f'{t:.1f}' for t in ms)}; "
+                  f"the slowest rank's); collectives per step and rank: "
+                  f"{comm}; against the single-device step, largest / rms "
+                  f"of scale: " + ", ".join(
+                      f"{n} {e['max']:.2e} / {e['rms']:.2e}"
+                      for n, e in errs.items()) + f" [{CARD}]")
+        if world > 1:
+            res["training"] = {}
+            for mesh_label in ranks[0]["training"]:
+                per = [r["training"][mesh_label] for r in ranks]
+                if per[0]["same"] is None or not all(per[0]["same"]):
+                    raise AssertionError(
+                        f"multi-device training {mesh_label}: gathered "
+                        f"ss/sy/x differ from the single-device fold "
+                        f"({per[0]['same']})")
+                launches = [p["launches"] for p in per]
+                if min(launches) < 1:
+                    raise AssertionError(f"multi-device training "
+                                         f"{mesh_label}: a rank never "
+                                         f"launched the kernel")
+                res["training"][mesh_label] = dict(
+                    launches=launches,
+                    seconds=max(p["seconds"] for p in per))
+                print(f"multi-device, sharded training drive at reference "
+                      f"width ({MD_TRAIN_REGIONS} regions, na=5896, "
+                      f"{MD_TRAIN_PAIRS} pairs, chunk {MD_TRAIN_CHUNK}), "
+                      f"{mesh_label}, {label_w} ({backend}): ss/sy/x "
+                      f"bitwise the single-device fold; accumulate_ss_scan "
+                      f"launches per rank {launches}; "
+                      f"{res['training'][mesh_label]['seconds']:.2f} s "
+                      f"[{CARD}]")
+            dry = [r["dryrun"] for r in ranks]
+            res["dryrun"] = dict(seconds=max(r["dryrun_s"] for r in ranks),
+                                 phases=dry[0]["seconds"],
+                                 ss=dry[0]["training"]["ss"],
+                                 accum_launches=[
+                                     d["training"]["accum_launches"]
+                                     for d in dry],
+                                 lat_physics=dry[0]["lat_physics"],
+                                 composed=dry[0]["composed"])
+            print(f"multi-device, dry run's six phases, {label_w} "
+                  f"({backend}): held against the single-device functions "
+                  f"in {res['dryrun']['seconds']:.1f} s; accumulate_ss_scan "
+                  f"launches per rank {res['dryrun']['accum_launches']} "
+                  f"[{CARD}]")
+        print(f"multi-device {key}: {res['seconds']:.1f} s (model set-up "
+              f"{res['setup_s']:.1f} s a rank); the communicator staged 0 "
+              f"bytes (gloo and NCCL take the CUDA tensors themselves)")
+        out[key] = res
+    gloo = out[f"W={MD_WORLD} gloo"]
+    out["launches"] = (sum(sum(t["launches"])
+                           for t in gloo["training"].values())
+                       + sum(gloo["dryrun"]["accum_launches"]))
+    # the kernel against its plain version at what one rank folds: the
+    # drive's share of the block, and the dry run's phase 1
+    from speedyml_torch import ReservoirConfig
+    from speedyml_torch.domain.decomposition import build_layout
+    from speedyml_torch.parallel import dryrun
+    L, rcfg = build_layout(), ReservoirConfig()
+    na = L.n_out + rcfg.nodes_per_input // L.n_in * L.n_in
+    rf = MD_TRAIN_REGIONS // MD_WORLD
+    out["at_multi_device_shape"] = dict(
+        T=MD_TRAIN_PAIRS, R=rf, na=na, **phase_kernel(
+            rf, MD_TRAIN_PAIRS, MD_TRAIN_CHUNK, na, True)[
+                "accumulate_ss_scan"])
+    R6, na6, _ = gloo["dryrun"]["ss"]
+    out["at_dryrun_shape"] = dict(
+        T=dryrun.TN, R=R6 // MD_WORLD, na=na6, **phase_kernel(
+            R6 // MD_WORLD, dryrun.TN, dryrun.CHUNK, na6, True)[
+                "accumulate_ss_scan"])
+    return out
+
+
 def inject_state(sp, gs):
     """The physics time level of a grid state, through the safety gate."""
     from speedyml_torch.hybrid.state_io import inject
@@ -2739,6 +3071,12 @@ def main():
         torch.cuda.empty_cache()
     long_tr, n_long, n_long_single = counted(
         "long training", phase_long_training, region_block)
+    # the ranks are processes of their own: each counts its own launches
+    # from 0, and the phase returns their sum
+    with tempfile.TemporaryDirectory() as bindir:
+        write_synthetic_boundary(bindir, SEED)
+        multi = timed("multi-device", phase_multi_device, bindir)
+    n_multi = multi.pop("launches")
     # the paths give the kernel other series lengths than the one timed
     # above: hold it against the plain version at each of them too
     at_len = {}
@@ -2767,7 +3105,7 @@ def main():
     print(json.dumps({
         "kernels": [entry("accumulate_ss_scan", "speedyml/ops/accum.py:107",
                           n_dry + n_full + n_ocean + n_pipe + n_scripts
-                          + n_tools + n_long,
+                          + n_tools + n_long + n_multi,
                           launches_dry_path=n_dry,
                           launches_full_physics_path=n_full,
                           launches_ocean_training=n_ocean,
@@ -2778,6 +3116,10 @@ def main():
                           launches_tools=n_tools,
                           launches_demo=tools["launches_demo"],
                           launches_long_training=n_long,
+                          launches_multi_device=n_multi,
+                          at_multi_device_shape=multi.pop(
+                              "at_multi_device_shape"),
+                          at_dryrun_shape=multi.pop("at_dryrun_shape"),
                           at_long_shape=long_tr,
                           at_dry_shape=at_dry,
                           at_full_physics_shape=at_full,
@@ -2797,7 +3139,8 @@ def main():
                     if not isinstance(v, dict)},
         "model_options": {k: v for k, v in options.items()
                           if not isinstance(v, dict)},
-        "tools": tools}))
+        "tools": tools,
+        "multi_device": multi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

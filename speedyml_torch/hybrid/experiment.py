@@ -546,10 +546,14 @@ class HybridRunner:
         (a 0-d bool tensor)."""
         res = self.fc.forecast(atmo_to_grid(atmo, logp), date,
                                sst_hybrid=sst)
-        f_atmo = torch.stack([res.gs.t, res.gs.u, res.gs.v,
-                              torch.clamp(res.gs.q, min=QMIN)])
-        f_pr = torch.log1p(torch.clamp(res.precip_mm, min=0.0) / self.eps)
-        return self.pack(f_atmo, res.gs.logp, f_pr, sst, tisr), res.safe
+        return self.pack_forecast(res.gs, res.precip_mm, sst, tisr), res.safe
+
+    def pack_forecast(self, gs: GridState, precip_mm, sst, tisr):
+        """A window's end state and precipitation [mm] as the model
+        supervector: the q floor and the log-precip transform, then pack."""
+        f_atmo = torch.stack([gs.t, gs.u, gs.v, torch.clamp(gs.q, min=QMIN)])
+        f_pr = torch.log1p(torch.clamp(precip_mm, min=0.0) / self.eps)
+        return self.pack(f_atmo, gs.logp, f_pr, sst, tisr)
 
     def precip_mm(self, precip_t):
         """The written precipitation [mm] of a transformed log-precip field:

@@ -28,7 +28,7 @@ from ..coupler.daily import (daily_coupler_update, fordate,
 from ..device import Download
 from ..dynamics.core import Dycore, Forcing
 from ..model import Speedy, ice_flux
-from ..physics.driver import init_rad_carry
+from ..physics.driver import init_rad_carry, phys_hook
 from ..physics.radiation import diurnal_tisr
 from .state_io import GridState, extract, inject
 
@@ -71,16 +71,24 @@ class SpeedyForecaster:
         return cls(None, hours=hours, physics=False, dy=dy)
 
     # ------------------------------------------------------------------
-    def window(self, gs: GridState, surf, forcing) -> WindowResult:
+    def window(self, gs: GridState, surf, forcing, dy=None, phys=None,
+               il: Optional[int] = None) -> WindowResult:
         """One window from grid state `gs` under the surface state `surf`
         (unused by the dry core) and the diffusion corrections `forcing`.
         It runs whatever the safety flag says; the caller decides what an
-        unsafe start means."""
-        dy = self.dy
+        unsafe start means.
+
+        dy, phys and il replace the forecaster's dycore, its model's physics
+        and the grid's latitude count: parallel.composed passes a rank's
+        latitude-local copies (parallel.spatial) and its block's row count,
+        and gs, surf and the results are then that rank's rows (the JAX
+        package's _window_fn(dy=, phys=, il=))."""
+        dy = dy if dy is not None else self.dy
         cfg = dy.config
+        il = il if il is not None else cfg.il
         nst = self.nsteps_window
         state, safe = inject(dy, gs)
-        z = torch.zeros((cfg.il, cfg.ix), dtype=dy.dtype, device=dy.device)
+        z = torch.zeros((il, cfg.ix), dtype=dy.dtype, device=dy.device)
 
         if not self.physics:
             state = dy.step(state, forcing, 0, 0, "half")
@@ -90,23 +98,24 @@ class SpeedyForecaster:
             return WindowResult(gs=extract(dy, state, level=0), precip_mm=z,
                                 safe=safe, flux_sums=(z, z, z))
 
-        phys_fn = self.speedy._phys_fn
+        phys = phys if phys is not None else self.speedy.phys
+
         # precip unit: physics precnv/precls are g/(m^2 s); x delt/1000 -> mm
         mm_per_step = cfg.delt / 1000.0
         rday = 1.0 / cfg.nsteps
-        rad = init_rad_carry(cfg.kx, cfg.il, cfg.ix, dy.dtype, dy.device)
+        rad = init_rad_carry(cfg.kx, il, cfg.ix, dy.dtype, dy.device)
         # stepone bootstrap (ini_stepone.f90) = window step 1
         state, (rad, fx) = dy.step(state, forcing, 0, 0, "half",
-                                   phys_fn(surf, rad, True))
+                                   phys_hook(phys, surf, rad, True))
         state, (rad, fx) = dy.step(state, forcing, 0, 1, "delt",
-                                   phys_fn(surf, rad, True))
+                                   phys_hook(phys, surf, rad, True))
         precip = (fx.precnv + fx.precls) * mm_per_step
         acc = (fx.hfluxn_l * rday, fx.hfluxn_s * rday,
                ice_flux(fx, surf) * rday)
         for j in range(1, nst):
             lradsw = (j % cfg.nstrad) == 0
             state, (rad, fx) = dy.step(state, forcing, 1, 1, "delt2",
-                                       phys_fn(surf, rad, lradsw))
+                                       phys_hook(phys, surf, rad, lradsw))
             precip = precip + (fx.precnv + fx.precls) * mm_per_step
             acc = (acc[0] + fx.hfluxn_l * rday,
                    acc[1] + fx.hfluxn_s * rday,

@@ -33,7 +33,7 @@ from .dynamics.state import SpectralState
 from .io.boundary import BoundaryData
 from .physics.constants import PP, make_sigma_tables
 from .physics.driver import (Physics, RadCarry, StepFluxes,
-                             SurfaceDailyState, init_rad_carry)
+                             SurfaceDailyState, init_rad_carry, phys_hook)
 from .physics.randfor import make_randfh
 from .physics.sppt import Sppt
 from .physics.surface import sflset
@@ -169,13 +169,9 @@ class Speedy:
         """The physics hook of one dycore step. The model's own steps pass
         its random diabatic forcing pattern and SPPT pattern; the hybrid
         forecasters' windows pass neither."""
-        def fn(dy, fphy):
-            tends, rad_new, fluxes = self.phys.step_physics(
-                dy, fphy, surf, rad, lradsw, randfh=randfh)
-            if sppt_pattern is not None:
-                tends = self._sppt.perturb(tends, sppt_pattern)
-            return tends, (rad_new, fluxes)
-        return fn
+        perturb = (None if sppt_pattern is None else
+                   lambda tends: self._sppt.perturb(tends, sppt_pattern))
+        return phys_hook(self.phys, surf, rad, lradsw, randfh, perturb)
 
     def _bootstrap(self):
         """stepone with physics: forward half-step then leapfrog half-step

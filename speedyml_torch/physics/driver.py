@@ -92,6 +92,21 @@ def init_rad_carry(kx: int, il: int, ix: int, dtype,
                     ssrd=z(il, ix), ssr=z(il, ix), tsr=z(il, ix))
 
 
+def phys_hook(phys, surf: SurfaceDailyState, rad: RadCarry, lradsw: bool,
+              randfh=None, perturb=None):
+    """The physics hook of one dycore step (Dycore.step's phys_fn):
+    phys.step_physics under surf and rad, its tendencies passed through
+    `perturb` (the SPPT perturbation) where given; the hook's carry is
+    (RadCarry, StepFluxes)."""
+    def fn(dy, fphy):
+        tends, rad_new, fluxes = phys.step_physics(dy, fphy, surf, rad,
+                                                   lradsw, randfh=randfh)
+        if perturb is not None:
+            tends = perturb(tends)
+        return tends, (rad_new, fluxes)
+    return fn
+
+
 class Physics:
     """Holds the static physics tables on `device` (the card unless the
     caller names another) in `dtype`; exposes the per-step function."""

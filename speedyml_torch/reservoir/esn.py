@@ -58,19 +58,22 @@ class EsnParams:
         return self.wout.shape[-1] - self.win.shape[-1]
 
 
-def spmv_ell(a_idx, a_val, x, a_shift=None):
+def spmv_ell(a_idx, a_val, x, a_shift=None, n0: int = 0):
     """Batched ELL sparse matvec: y[r, i] = sum_d val[r,i,d] * x[r, idx[r,i,d]].
 
-    x: (..., R, n) -> (..., R, n); leading axes (ensemble members) share the
-    matrices. With a_shift (deg host ints; idx[r,i,d] = (i + s_d) mod n)
-    the gather becomes deg contiguous shifted slices.
+    x: (..., R, N) -> (..., R, n); leading axes (ensemble members) share the
+    matrices. a_idx and a_val hold the rows n0 .. n0 + n of the adjacency
+    (all of them, n = N, on one device; a tp block of them in
+    parallel.reservoir), x the whole state. With a_shift (deg host ints;
+    idx[r,i,d] = (i + s_d) mod N) the gather becomes deg contiguous shifted
+    slices.
     """
     R, n, deg = a_idx.shape
     if a_shift is not None:
-        xx = torch.cat([x, x], dim=-1)             # (..., R, 2n) wraparound
+        xx = torch.cat([x, x], dim=-1)             # (..., R, 2N) wraparound
         y = None
         for d, s in enumerate(a_shift):
-            t = a_val[:, :, d] * xx[..., s:s + n]
+            t = a_val[:, :, d] * xx[..., n0 + s:n0 + s + n]
             y = t if y is None else y + t
         return y
     idx = a_idx.reshape(R, n * deg).expand(*x.shape[:-1], n * deg)
@@ -78,29 +81,40 @@ def spmv_ell(a_idx, a_val, x, a_shift=None):
     return torch.sum(a_val * gathered, dim=-1)
 
 
-def win_apply(params: EsnParams, u):
-    """Win @ u via the block structure: node j gets input node_map[j]."""
-    return params.win * torch.index_select(u, -1, params.node_map)
+def win_apply(params: EsnParams, u, n0: int = 0):
+    """Win @ u via the block structure: node j gets input node_map[j]
+    (params.win holds the nodes n0 .. n0 + n)."""
+    node_map = params.node_map
+    if n0 or node_map.shape[0] != params.n:
+        node_map = node_map[n0:n0 + params.n]
+    return params.win * torch.index_select(u, -1, node_map)
 
 
-def advance(params: EsnParams, x, u):
+def advance(params: EsnParams, x, u, n0: int = 0):
     """One reservoir update x <- (1-l)x + l*tanh(A x + Win u)
-    (mod_reservoir.f90:1418-1435)."""
+    (mod_reservoir.f90:1418-1435).
+
+    params may hold the node rows n0 .. n0 + n only (a tp block,
+    parallel.mesh.shard_params) with x the whole state: then the new values
+    of those rows are returned."""
     u = u.to(x.dtype)
-    y = spmv_ell(params.a_idx, params.a_val, x, params.a_shift)
-    x_new = torch.tanh(y + win_apply(params, u))
+    y = spmv_ell(params.a_idx, params.a_val, x, params.a_shift, n0)
+    x_new = torch.tanh(y + win_apply(params, u, n0))
+    if n0 or x.shape[-1] != params.n:
+        x = x[..., n0:n0 + params.n]
     lk = params.leakage
     return (1.0 - lk) * x + lk * x_new
 
 
-def nonlinear_state(x):
+def nonlinear_state(x, n0: int = 0):
     """x~ with odd (0-based) nodes squared (the reference squares 1-based
-    even indices, mod_reservoir.f90:1029)."""
-    mask = (torch.arange(x.shape[-1], device=x.device) % 2).to(x.dtype)
+    even indices, mod_reservoir.f90:1029); x holds the nodes n0.. ."""
+    mask = (torch.arange(n0, n0 + x.shape[-1], device=x.device) % 2).to(
+        x.dtype)
     return x * (1.0 - mask) + (x * x) * mask
 
 
-def readout(params: EsnParams, x, model_vec=None):
+def readout(params: EsnParams, x, model_vec=None, n0: int = 0):
     """outvec = Wout @ [model_vec; x~] (predict, mod_reservoir.f90:1446-1455).
 
     model_vec: (R, n_model) standardized imperfect-model forecast (hybrid) or
@@ -110,8 +124,11 @@ def readout(params: EsnParams, x, model_vec=None):
     weight stream of the predict step. Then aug is rounded to bf16 too, and
     the product accumulates and is returned in f32 (the JAX package's
     preferred_element_type). An f64 wout gives an f64 readout.
+
+    x may hold the nodes n0.. only, and wout their columns (a tp block):
+    the result is then that block's part of the readout.
     """
-    xt = nonlinear_state(x)
+    xt = nonlinear_state(x, n0)
     if model_vec is not None and params.n_model > 0:
         aug = torch.cat([model_vec.to(xt.dtype), xt], dim=-1)
     else:

@@ -85,7 +85,8 @@ def fold_segment(R: int, na: int, chunk: int, device) -> int:
 def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
                          model_states=None, noise_mag: float = 0.0,
                          generator: Optional[torch.Generator] = None,
-                         chunk: int = 128) -> NormalEq:
+                         chunk: int = 128, step=advance,
+                         regions: slice = slice(None)) -> NormalEq:
     """Run the reservoir over a training series, accumulating normal equations.
 
     inputs:  (T, R, n_in) standardized input series u(t), t = 0..T-1
@@ -95,6 +96,11 @@ def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
     chunk: timesteps per fold; T is truncated to a multiple of chunk. The
     series is driven and folded one fold_segment of whole chunks at a time,
     so memory does not grow with T.
+    step(params, x, u): the reservoir update of the carried state acc.x
+    (esn.advance); regions: the regions of the series and of x whose
+    states the accumulators fold (all of them). The sharded drive
+    (parallel.reservoir) passes an update that gathers the node blocks and
+    its tp rank's share of the regions.
 
     The (state-after-u(t), target(t+1)) pairing matches the reference's
     chunked layer (mod_reservoir.f90:1004-1065). acc's four accumulators
@@ -118,8 +124,7 @@ def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
     Tc = nchunks * chunk
 
     n_model = 0 if model_states is None else model_states.shape[-1]
-    R = acc.x.shape[0]
-    na = n_model + params.n
+    R, _, na = acc.ss_hi.shape
     segment = fold_segment(R, na, chunk, acc.x.device)
     # the augmented states [model; x~] of one segment at a time
     buf = torch.empty((min(segment, Tc), R, na), dtype=dt,
@@ -129,13 +134,13 @@ def drive_and_accumulate(params: EsnParams, acc: NormalEq, inputs, targets,
         s1 = min(s0 + segment, Tc)
         aug = buf[:s1 - s0]
         if model_states is not None:
-            aug[:, :, :n_model] = model_states[s0:s1]
+            aug[:, :, :n_model] = model_states[s0:s1, regions]
         for t in range(s0, s1):
-            x = advance(params, x, inputs[t])
-            aug[t - s0, :, n_model:] = nonlinear_state(x)
+            x = step(params, x, inputs[t])
+            aug[t - s0, :, n_model:] = nonlinear_state(x[regions])
         for c0 in range(0, s1 - s0, chunk):
             sy_d = torch.einsum("tro,tra->roa",
-                                targets[s0 + c0:s0 + c0 + chunk],
+                                targets[s0 + c0:s0 + c0 + chunk, regions],
                                 aug[c0:c0 + chunk])
             _two_sum_(acc.sy_hi, acc.sy_lo, sy_d)
         accumulate_ss_scan(acc.ss_hi, acc.ss_lo, aug, chunk)

@@ -29,7 +29,9 @@ SLICE_MODULES = [
     "io.era", "hybrid.era_training", "hybrid.ensemble", "utils.diag",
     "utils.analysis", "utils.climate", "utils.timemean", "io.grads",
     "physics.randfor", "physics.sppt", "io.native_loader",
-    "reservoir.linalg",
+    "reservoir.linalg", "parallel.comm", "parallel.launch",
+    "parallel.mesh", "parallel.reservoir", "parallel.spatial",
+    "parallel.composed", "parallel.dryrun",
 ]
 
 # the scripts of scripts_torch that the source scan must reach
@@ -37,7 +39,8 @@ SCRIPTS = ["accum_accuracy", "profile_slice", "analyze_forecast",
            "score_run", "decade_table", "climate_check", "enso_eval",
            "train_from_era", "reference_scale", "export_workers",
            "demo_hybrid", "diag_precip_bias", "make_precip_debias",
-           "diag_wetbias", "diag_hybrid", "coupled_probe", "coupled_probe2"]
+           "diag_wetbias", "diag_hybrid", "coupled_probe", "coupled_probe2",
+           "bench_scaling"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -187,6 +190,10 @@ _ENTRY_POINTS = {
         "import_worker_files(d, L, ReservoirConfig())"),
     "mldivide": ("import numpy as np; from speedyml_torch.reservoir.linalg "
                  "import mldivide; mldivide(np.eye(3), np.ones((2, 3)))"),
+    "dryrun": ("from speedyml_torch.parallel.dryrun import main; "
+               "main(['--nproc', '1'])"),
+    "bench_scaling": ("import sys; sys.path.insert(0, 'scripts_torch'); "
+                      "import bench_scaling; bench_scaling.main([])"),
 }
 
 
