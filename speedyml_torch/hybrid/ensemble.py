@@ -31,6 +31,7 @@ from ..domain.standardize import (standardize_in, standardize_out,
                                   unstandardize_out)
 from ..physics.radiation import diurnal_tisr
 from ..reservoir.esn import predict_step
+from ..utils import diag
 from .experiment import QMIN, SST_MIN, clamp_precip_t
 from .forecast import SpeedyForecaster
 from .state_io import GridState
@@ -74,10 +75,12 @@ class EnsembleHybrid:
         """The members' windows: (gv_e, model_gv_e, safe_e), the packed
         states (E, gv_len), their packed forecasts and the windows' safety
         flags (E,)."""
-        ss = torch.clamp(self._dev32(sst), min=SST_MIN)
-        ti = torch.clamp(self._dev32(tisr), min=0.0)
-        return self._windows(self._dev32(atmo_e), self._dev32(logp_e),
-                             self._dev32(precip_t_e), ss, ti, surf, forcing)
+        with diag.span("ensemble.window", device=True):
+            ss = torch.clamp(self._dev32(sst), min=SST_MIN)
+            ti = torch.clamp(self._dev32(tisr), min=0.0)
+            return self._windows(self._dev32(atmo_e), self._dev32(logp_e),
+                                 self._dev32(precip_t_e), ss, ti, surf,
+                                 forcing)
 
     def exchange(self, x_e, gv_e, model_gv_e):
         """The reservoir part for all members: standardize, advance and
@@ -85,17 +88,21 @@ class EnsembleHybrid:
         clamp. Returns (x_e, atmo_e, logp_e, precip_t_e)."""
         hm = self.hm
         L = hm.layout
-        idx, tidx = L.maps(gv_e.device)
-        u = standardize_in(hm.stz, gv_e[:, idx])              # (E, R, n_in)
-        mv = standardize_out(hm.stz, model_gv_e[:, tidx])     # (E, R, n_out)
-        x_e, out_std = predict_step(hm.params, self._dev32(x_e), u, mv)
-        out = unstandardize_out(hm.stz, out_std)
-        atmo, logp, pr = torch.func.vmap(
-            lambda o: scatter_outputs(L, o))(out)
-        atmo = torch.cat([atmo[:, :3], torch.clamp(atmo[:, 3:], min=QMIN)],
-                         dim=1)
-        if pr is not None:
-            pr = clamp_precip_t(pr, self.eps, hm.rcfg.precip_cap_mm)
+        with diag.span("ensemble.exchange", device=True):
+            with diag.span("ensemble.exchange.pack", device=True):
+                idx, tidx = L.maps(gv_e.device)
+                u = standardize_in(hm.stz, gv_e[:, idx])      # (E, R, n_in)
+                mv = standardize_out(hm.stz, model_gv_e[:, tidx])
+                x_e = self._dev32(x_e)
+            x_e, out_std = predict_step(hm.params, x_e, u, mv)
+            with diag.span("ensemble.exchange.unpack", device=True):
+                out = unstandardize_out(hm.stz, out_std)
+                atmo, logp, pr = torch.func.vmap(
+                    lambda o: scatter_outputs(L, o))(out)
+                atmo = torch.cat([atmo[:, :3],
+                                  torch.clamp(atmo[:, 3:], min=QMIN)], dim=1)
+                if pr is not None:
+                    pr = clamp_precip_t(pr, self.eps, hm.rcfg.precip_cap_mm)
         return x_e, atmo, logp, pr
 
     def step(self, x_e, atmo_e, logp_e, precip_t_e, sst, tisr, surf,
@@ -111,6 +118,7 @@ class EnsembleHybrid:
         return (*self.exchange(x_e, gv, model_gv), safe)
 
     # ------------------------------------------------------------------
+    @diag.loop("ensemble")
     def run(self, x_e, atmo_e, logp_e, precip_t_e, date: ModelDate,
             n_steps: int, sst_fn=None, verbose: int = 0,
             collect: bool = True) -> dict:
@@ -129,16 +137,22 @@ class EnsembleHybrid:
         traj = {k: [] for k in ("atmo", "logp", "precip_t")}
         aborted = False
         for step_i in range(n_steps):
-            sst = np.asarray(init_coupler_state(sp.clim, date).sst_am)
-            if sst_fn is not None:
-                sst = sst_fn(date)
-            tisr = diurnal_tisr(date.tyear, date.ihour, sp.dy.tables.gsin,
-                                sp.dy.tables.gcos, sp.config.ix)
-            surf, forcing = fc._surf_forcing(date, sst_hybrid=sst)
-            x_e, atmo_e, logp_e, precip_t_e, safe = self.step(
-                x_e, atmo_e, logp_e, precip_t_e, sst, tisr, surf, forcing)
+            with diag.span("ensemble.boundary", index=step_i):
+                sst = np.asarray(init_coupler_state(sp.clim, date).sst_am)
+                if sst_fn is not None:
+                    sst = sst_fn(date)
+                tisr = diurnal_tisr(date.tyear, date.ihour,
+                                    sp.dy.tables.gsin, sp.dy.tables.gcos,
+                                    sp.config.ix)
+                surf, forcing = fc._surf_forcing(date, sst_hybrid=sst)
+            with diag.span("ensemble.step", index=step_i):
+                x_e, atmo_e, logp_e, precip_t_e, safe = self.step(
+                    x_e, atmo_e, logp_e, precip_t_e, sst, tisr, surf,
+                    forcing)
             date.advance_hours(self.hm.rcfg.timestep)
-            if not bool(safe.all()):
+            with diag.span("ensemble.flag_wait", index=step_i):
+                all_safe = bool(safe.all())
+            if not all_safe:
                 aborted = True
                 break
             if collect:

@@ -50,6 +50,7 @@ from ..physics.constants import PP
 from ..physics.driver import SurfaceDailyState
 from ..physics.radiation import diurnal_tisr
 from ..reservoir.slab import compose_week_inputs
+from ..utils import diag
 from .experiment import QMIN, SST_MIN
 from .forecast import SpeedyForecaster
 from .state_io import GridState
@@ -176,7 +177,8 @@ class ScanHybridRunner:
         Overridable (tests stub this the way they stub HybridRunner._sst)."""
         sp = self.speedy
         cs = init_coupler_state(sp.clim, date)
-        rad, _, _ = fordate(sp.dy, sp.clim, cs, date)
+        with diag.span("fastloop.fields.host.fordate"):
+            rad, _, _ = fordate(sp.dy, sp.clim, cs, date)
         tisr = diurnal_tisr(date.tyear, date.ihour, sp.dy.tables.gsin,
                             sp.dy.tables.gcos, sp.config.ix)
         return dict(sst_clim=cs.sst_am, sstcl=cs.sstcl_ob, sicecl=cs.sice_am,
@@ -192,18 +194,20 @@ class ScanHybridRunner:
         d = ModelDate(date0.iyear, date0.imonth, date0.iday, date0.ihour)
         L = self.hm.layout
         rows = []
-        for _ in range(K):
-            r = self._host_step_fields(d)
-            # stubs (tests) may provide only the reservoir-facing fields;
-            # the ml_only path never reads the window boundary fields
-            for k in StepFields._fields:
-                if k not in r:
-                    r[k] = np.zeros((L.il, L.ix))
-            rows.append(r)
-            d.advance_hours(self.hm.rcfg.timestep)
-        return StepFields(**{k: np.stack([np.asarray(r[k], np.float64)
-                                          for r in rows])
-                             for k in StepFields._fields})
+        with diag.span("fastloop.fields.host"):
+            for _ in range(K):
+                r = self._host_step_fields(d)
+                # stubs (tests) may provide only the reservoir-facing
+                # fields; the ml_only path never reads the window boundary
+                # fields
+                for k in StepFields._fields:
+                    if k not in r:
+                        r[k] = np.zeros((L.il, L.ix))
+                rows.append(r)
+                d.advance_hours(self.hm.rcfg.timestep)
+            return StepFields(**{k: np.stack([np.asarray(r[k], np.float64)
+                                              for r in rows])
+                                 for k in StepFields._fields})
 
     def _upload_fields(self, xs: StepFields) -> StepFields:
         """The chunk's boundary fields to the device, pinned to the model
@@ -216,14 +220,15 @@ class ScanHybridRunner:
         for k in StepFields._fields:
             by_shape.setdefault(getattr(xs, k).shape, []).append(k)
         out = {}
-        for shape, keys in by_shape.items():
-            host = torch.empty((len(keys),) + shape, dtype=self.dtype,
-                               pin_memory=self.device.type == "cuda")
-            for i, k in enumerate(keys):
-                host[i].copy_(torch.from_numpy(getattr(xs, k)))
-            dev = host.to(self.device, non_blocking=True)
-            for i, k in enumerate(keys):
-                out[k] = dev[i]
+        with diag.span("fastloop.fields.upload"):
+            for shape, keys in by_shape.items():
+                host = torch.empty((len(keys),) + shape, dtype=self.dtype,
+                                   pin_memory=self.device.type == "cuda")
+                for i, k in enumerate(keys):
+                    host[i].copy_(torch.from_numpy(getattr(xs, k)))
+                dev = host.to(self.device, non_blocking=True)
+                for i, k in enumerate(keys):
+                    out[k] = dev[i]
         return StepFields(**out)
 
     # ------------------------------------------------------------------
@@ -309,6 +314,7 @@ class ScanHybridRunner:
                            pr_st, sst_st, safe_st)
 
     # ------------------------------------------------------------------
+    @diag.loop("fastloop")
     def run(self, x, atmo0, logp0, precip_t0, date: ModelDate, n_steps: int,
             ocean=None, x_ocean=None, sst_anom0=None, writer=None,
             checkpoint_path=None, checkpoint_every: int = 0,
@@ -365,6 +371,7 @@ class ScanHybridRunner:
         summary = {"steps": 0, "sst_first": None, "sst_last": None}
         last_state = {}         # streamed: the last flushed step's fields
         eps = hm.rcfg.precip_epsilon
+        this_run = diag.current_run()
 
         def acc_summary(a, p_mm, ss):
             for name, arr in (("t", a[:, 0]), ("u", a[:, 1]),
@@ -379,23 +386,25 @@ class ScanHybridRunner:
             summary["sst_last"] = ss[-1].copy()
             summary["steps"] += len(a)
 
-        def flush(dl: Download):
-            a, lp, p_log, ss = dl.arrays()
-            if not len(a):
-                return
-            if self.precip_debias is not None:
-                p_log = np.maximum(p_log - self.precip_debias, 0.0)
-            p_mm = eps * np.expm1(np.maximum(p_log, 0.0))
-            if writer is not None:
-                for j in range(len(a)):
-                    writer.append(a[j], lp[j], precip_mm=p_mm[j], sst=ss[j])
-            acc_summary(a, p_mm, ss)
-            if keep_traj:
-                for k, v in (("atmo", a), ("logp", lp), ("precip_mm", p_mm),
-                             ("sst", ss)):
-                    traj[k].append(np.array(v))
-            else:                   # streamed: drop all but the tail step
-                last_state.update(atmo=a[-1].copy(), logp=lp[-1].copy())
+        def flush(dl: Download, ci: int):
+            with diag.span("fastloop.flush", index=ci, run=this_run):
+                a, lp, p_log, ss = dl.arrays()
+                if not len(a):
+                    return
+                if self.precip_debias is not None:
+                    p_log = np.maximum(p_log - self.precip_debias, 0.0)
+                p_mm = eps * np.expm1(np.maximum(p_log, 0.0))
+                if writer is not None:
+                    for j in range(len(a)):
+                        writer.append(a[j], lp[j], precip_mm=p_mm[j],
+                                      sst=ss[j])
+                acc_summary(a, p_mm, ss)
+                if keep_traj:
+                    for k, v in (("atmo", a), ("logp", lp),
+                                 ("precip_mm", p_mm), ("sst", ss)):
+                        traj[k].append(np.array(v))
+                else:               # streamed: drop all but the tail step
+                    last_state.update(atmo=a[-1].copy(), logp=lp[-1].copy())
 
         steps_done = 0
         aborted = False
@@ -406,22 +415,26 @@ class ScanHybridRunner:
         # trajectory as it arrives, beside the next chunk's launches
         pool = ThreadPoolExecutor(max_workers=1)
         flush_fut = None
-        xs_host = self._precompute(date, K)
-        xs_dev = self._upload_fields(xs_host)
+        with diag.span("fastloop.fields", index=0):
+            xs_host = self._precompute(date, K)
+            xs_dev = self._upload_fields(xs_host)
         try:
             for ci in range(n_chunks):
                 if pending is not None:
                     if flush_fut is not None:
-                        flush_fut.result()
-                    flush_fut = pool.submit(flush, pending)
+                        with diag.span("fastloop.flush_wait", index=ci):
+                            flush_fut.result()
+                    flush_fut = pool.submit(flush, pending, ci - 1)
                     pending = None
-                if self._side is not None:
-                    ev0, ev1 = (torch.cuda.Event(enable_timing=True)
-                                for _ in range(2))
-                    ev0.record()
-                res = self.run_chunk(x, atmo, logp, pr, anom, xs_dev, K)
-                if self._side is not None:
-                    ev1.record()
+                with diag.span("fastloop.chunk", index=ci) as chunk:
+                    if self._side is not None:
+                        ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                                    for _ in range(2))
+                        ev0.record()
+                    res = self.run_chunk(x, atmo, logp, pr, anom, xs_dev, K)
+                    if self._side is not None:
+                        ev1.record()
+                        chunk.timed_by(ev0, ev1)
                 # while the device works through the chunk: stage the next
                 # chunk's boundary fields
                 clim_last = xs_host.sst_clim[K - 1]
@@ -430,21 +443,25 @@ class ScanHybridRunner:
                 for _ in range(K):
                     date_next.advance_hours(hm.rcfg.timestep)
                 if ci + 1 < n_chunks:
-                    xs_host = self._precompute(date_next, K)
-                    xs_dev = self._upload_fields(xs_host)
+                    with diag.span("fastloop.fields", index=ci + 1):
+                        xs_host = self._precompute(date_next, K)
+                        xs_dev = self._upload_fields(xs_host)
                 # the chunk's one read of the device: K safety flags
-                safe = res.safe_st.cpu().numpy()
+                with diag.span("fastloop.flag_wait", index=ci):
+                    safe = res.safe_st.cpu().numpy()
                 if self._side is not None:
                     chunk_ms.append(ev0.elapsed_time(ev1))
                 upto = int(np.argmax(~safe)) if (~safe).any() else K
                 aborted = upto < K
+                chunk.count("steps", upto)
                 if ocean is not None and not aborted:
-                    gv_week = compose_week_inputs(res.gv_last, res.gv_sum, K,
-                                                  L)
-                    x_ocean, sst_core = ocean.step(x_ocean, gv_week)
-                    grid = ocean.compose_sst(sst_core, clim_last, L)
-                    anom = torch.as_tensor(grid - clim_last,
-                                           dtype=self.dtype, device=dev)
+                    with diag.span("fastloop.ocean", index=ci):
+                        gv_week = compose_week_inputs(res.gv_last,
+                                                      res.gv_sum, K, L)
+                        x_ocean, sst_core = ocean.step(x_ocean, gv_week)
+                        grid = ocean.compose_sst(sst_core, clim_last, L)
+                        anom = torch.as_tensor(grid - clim_last,
+                                               dtype=self.dtype, device=dev)
                 x, atmo, logp, pr = res.x, res.atmo, res.logp, res.pr
                 date = date_next
                 steps_done += upto
@@ -475,10 +492,12 @@ class ScanHybridRunner:
                     t_prev = now
                 if deadline is not None and time.time() > deadline:
                     break
+            # after the last chunk (ci): its flush and the one before
             if flush_fut is not None:
-                flush_fut.result()
+                with diag.span("fastloop.flush_wait", index=ci + 1):
+                    flush_fut.result()
             if pending is not None:
-                flush(pending)
+                flush(pending, ci)
         finally:
             pool.shutdown(wait=True)
         out = {k: (np.concatenate(v) if v else None)

@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import diag
+
 
 @dataclasses.dataclass
 class EsnParams:
@@ -191,5 +193,7 @@ def synchronize(params: EsnParams, x, inputs):
 
 def predict_step(params: EsnParams, x, feedback, model_vec=None):
     """One prediction step: advance with feedback, read out."""
-    x = advance(params, x, feedback)
-    return x, readout(params, x, model_vec)
+    with diag.span("esn.advance", device=True):
+        x = advance(params, x, feedback)
+    with diag.span("esn.readout", device=True):
+        return x, readout(params, x, model_vec)
