@@ -110,6 +110,18 @@ def interp_sea(clim: Climatology, imon: int, fmon: float):
     return sstcl_n, sicecl_n, ticecl_n
 
 
+def ice_blend(sst, sice, tice):
+    """The SST the atmosphere sees over a sea-ice fraction `sice` of
+    temperature `tice` (cpl_sea.f90:44, :198)."""
+    return sst + sice * (tice - sst)
+
+
+def clim_sst_am(clim: Climatology, date: ModelDate) -> np.ndarray:
+    """The climatological SST the atmosphere sees at `date`:
+    init_coupler_state(clim, date).sst_am, without the land fields."""
+    return ice_blend(*interp_sea(clim, date.imonth, date.tmonth))
+
+
 def init_coupler_state(clim: Climatology, date: ModelDate,
                        sst_hybrid: np.ndarray | None = None,
                        sst_bias: float = 0.0) -> CouplerState:
@@ -136,7 +148,7 @@ def init_coupler_state(clim: Climatology, date: ModelDate,
         diff = sst_am - sst_hybrid
         sst_am = np.where(diff < 6.0, sst_hybrid, sst_am) + sst_bias
 
-    sst_am = sst_am + sice_am * (tice_am - sst_am)
+    sst_am = ice_blend(sst_am, sice_am, tice_am)
 
     return CouplerState(
         stl_lm=stl_lm, stl_am=stl_am, snowd_am=snowdcl, soilw_am=soilwcl,
@@ -184,10 +196,9 @@ def daily_coupler_update(clim: Climatology, cs: CouplerState,
     # sea-ice fraction persists (cpl_sea_model.f90:200-201)
 
     # sea2atm with icsea=0, icice=1 (cpl_sea.f90:155-200)
-    cs.sst_am = sstcl.copy()
     cs.sice_am = cs.sice_om
     cs.tice_am = cs.tice_om
-    cs.sst_am = cs.sst_am + cs.sice_am * (cs.tice_am - cs.sst_am)
+    cs.sst_am = ice_blend(sstcl, cs.sice_am, cs.tice_am)
     cs.sstcl_ob = sstcl
     cs.sicecl_ob = sicecl
     cs.ticecl_ob = ticecl

@@ -24,7 +24,9 @@ a CUDA graph would capture.
 
 Everything date-dependent but SST-independent (climatology interpolation,
 solar/ozone tables, albedos, diurnal TISR, tcorh) is precomputed on the host
-per chunk and uploaded in one copy per shape; the two SST-dependent pieces
+per chunk and uploaded in one copy per shape; an ML-only chunk, which runs
+no window, builds only the two fields its step reads (the ice-blended SST
+climatology and the TISR). The two SST-dependent pieces
 of the boundary condition, the hybrid-SST gate + ice blending
 (cpl_sea.f90:38-44) and the humidity forcing correction qcorh
 (ini_fordate.f90), are computed on the device from the fed-back SST.
@@ -41,7 +43,7 @@ import torch
 
 from ..core.calendar import ModelDate
 from ..core.constants import DYN, PHYS
-from ..coupler.daily import fordate, init_coupler_state
+from ..coupler.daily import clim_sst_am, fordate, init_coupler_state
 from ..device import Download
 from ..domain.decomposition import pack_global
 from ..dynamics.core import Forcing
@@ -57,25 +59,31 @@ from .state_io import GridState
 
 
 class StepFields(NamedTuple):
-    """Per-step host-precomputed boundary fields, stacked (K, ...)."""
+    """Per-step host-precomputed boundary fields, stacked (K, ...). The
+    ML-only step reads the first two; the rest feed only the window and are
+    None on an ML-only model."""
 
     sst_clim: np.ndarray     # ice-blended climatological SST (reservoir input)
-    sstcl: np.ndarray        # adjusted open-water SST clim (gate reference)
-    sicecl: np.ndarray
-    ticecl: np.ndarray
-    stl_am: np.ndarray
-    snowd_am: np.ndarray
-    soilw_am: np.ndarray
     tisr: np.ndarray
-    alb_l: np.ndarray
-    alb_s: np.ndarray
-    albsfc: np.ndarray
-    snowc: np.ndarray
-    fsol: np.ndarray         # (K, il) zonal
-    ozupp: np.ndarray
-    ozone: np.ndarray
-    zenit: np.ndarray
-    stratz: np.ndarray
+    sstcl: np.ndarray = None   # adjusted open-water SST clim (gate reference)
+    sicecl: np.ndarray = None
+    ticecl: np.ndarray = None
+    stl_am: np.ndarray = None
+    snowd_am: np.ndarray = None
+    soilw_am: np.ndarray = None
+    alb_l: np.ndarray = None
+    alb_s: np.ndarray = None
+    albsfc: np.ndarray = None
+    snowc: np.ndarray = None
+    fsol: np.ndarray = None    # (K, il) zonal
+    ozupp: np.ndarray = None
+    ozone: np.ndarray = None
+    zenit: np.ndarray = None
+    stratz: np.ndarray = None
+
+
+# the fields the ML-only step reads (run_chunk)
+ML_FIELDS = ("sst_clim", "tisr")
 
 
 class ChunkResult(NamedTuple):
@@ -93,6 +101,11 @@ class ChunkResult(NamedTuple):
     pr_st: torch.Tensor      # (K, il, ix) transformed log-precip
     sst_st: torch.Tensor     # (K, il, ix)
     safe_st: torch.Tensor    # (K,) bool
+
+
+def _n_fields(xs: StepFields) -> int:
+    """The number of fields built a step (the fastloop.fields span's count)."""
+    return sum(f is not None for f in xs)
 
 
 def _ml_sane(atmo2, logp2):
@@ -136,10 +149,11 @@ class ScanHybridRunner:
         self.chunk = chunk
         self.device = hm.params.win.device
         # ml_only safety predicate (atmo2, logp2, xs) -> 0-d bool tensor,
-        # evaluated on the POST-step state. None selects the default sanity
-        # gate (finite + physical T/wind bounds): the ml_only analog of the
-        # window path's safety flag (the reference's invars gate,
-        # mpires.f90:744); tests override it.
+        # evaluated on the POST-step state; xs is step k's StepFields, whose
+        # window-only fields are None on an ml_only model. None selects the
+        # default sanity gate (finite + physical T/wind bounds): the ml_only
+        # analog of the window path's safety flag (the reference's invars
+        # gate, mpires.f90:744); tests override it.
         self._ml_safe_fn = None
         # optional (il, ix) output-side precip debias (sigma^2/2 of the
         # readout's log1p residual; see HybridRunner.precip_debias)
@@ -173,14 +187,18 @@ class ScanHybridRunner:
 
     # ------------------------------------------------------------------
     def _host_step_fields(self, date: ModelDate) -> dict:
-        """All SST-independent boundary fields for one step (host numpy).
-        Overridable (tests stub this the way they stub HybridRunner._sst)."""
+        """The SST-independent boundary fields the step reads, for one step
+        (host numpy): on an ML-only model sst_clim and tisr alone, on a
+        hybrid model all of StepFields. Overridable (tests stub this the way
+        they stub HybridRunner._sst)."""
         sp = self.speedy
+        tisr = diurnal_tisr(date.tyear, date.ihour, sp.dy.tables.gsin,
+                            sp.dy.tables.gcos, sp.config.ix)
+        if self.hm.ml_only:
+            return dict(sst_clim=clim_sst_am(sp.clim, date), tisr=tisr)
         cs = init_coupler_state(sp.clim, date)
         with diag.span("fastloop.fields.host.fordate"):
             rad, _, _ = fordate(sp.dy, sp.clim, cs, date)
-        tisr = diurnal_tisr(date.tyear, date.ihour, sp.dy.tables.gsin,
-                            sp.dy.tables.gcos, sp.config.ix)
         return dict(sst_clim=cs.sst_am, sstcl=cs.sstcl_ob, sicecl=cs.sice_am,
                     ticecl=cs.tice_am, stl_am=cs.stl_am,
                     snowd_am=cs.snowd_am, soilw_am=cs.soilw_am, tisr=tisr,
@@ -191,34 +209,35 @@ class ScanHybridRunner:
                     stratz=rad["stratz"])
 
     def _precompute(self, date0: ModelDate, K: int) -> StepFields:
+        """The chunk's fields stacked (K, ...) in float64: on an ML-only
+        model only ML_FIELDS (the rest stay None), on a hybrid model all,
+        a field that a stub leaves out as zeros."""
         d = ModelDate(date0.iyear, date0.imonth, date0.iday, date0.ihour)
         L = self.hm.layout
+        keys = ML_FIELDS if self.hm.ml_only else StepFields._fields
+        pad = np.zeros((L.il, L.ix))
         rows = []
         with diag.span("fastloop.fields.host"):
             for _ in range(K):
                 r = self._host_step_fields(d)
-                # stubs (tests) may provide only the reservoir-facing
-                # fields; the ml_only path never reads the window boundary
-                # fields
-                for k in StepFields._fields:
-                    if k not in r:
-                        r[k] = np.zeros((L.il, L.ix))
-                rows.append(r)
+                rows.append([r.get(k, pad) for k in keys])
                 d.advance_hours(self.hm.rcfg.timestep)
-            return StepFields(**{k: np.stack([np.asarray(r[k], np.float64)
+            return StepFields(**{k: np.stack([np.asarray(r[i], np.float64)
                                               for r in rows])
-                                 for k in StepFields._fields})
+                                 for i, k in enumerate(keys)})
 
     def _upload_fields(self, xs: StepFields) -> StepFields:
-        """The chunk's boundary fields to the device, pinned to the model
-        dtype: fields of one shape are stacked into one pinned host buffer
-        and go up in ONE non-blocking copy (two in all, the (K, il, ix) and
-        the zonal (K, il) fields, instead of seventeen), then are sliced on
-        the device. A non-blocking copy from pinned memory does not make
-        the host wait for the chunk that is still running."""
+        """The chunk's boundary fields that are not None to the device,
+        pinned to the model dtype: fields of one shape are stacked into one
+        pinned host buffer and go up in ONE non-blocking copy (on a hybrid
+        model two in all, the (K, il, ix) and the zonal (K, il) fields; on
+        an ML-only model one), then are sliced on the device. A
+        non-blocking copy from pinned memory does not make the host wait
+        for the chunk that is still running."""
         by_shape = {}
-        for k in StepFields._fields:
-            by_shape.setdefault(getattr(xs, k).shape, []).append(k)
+        for k, v in xs._asdict().items():
+            if v is not None:
+                by_shape.setdefault(v.shape, []).append(k)
         out = {}
         with diag.span("fastloop.fields.upload"):
             for shape, keys in by_shape.items():
@@ -303,8 +322,8 @@ class ScanHybridRunner:
             x, atmo, logp, pr = hm.step(x, gv, model_gv)
             if hm.ml_only:
                 safe = _ml_sane(atmo, logp) if self._ml_safe_fn is None \
-                    else self._ml_safe_fn(atmo, logp,
-                                          StepFields(*(f[k] for f in xs)))
+                    else self._ml_safe_fn(atmo, logp, StepFields(
+                        *(None if f is None else f[k] for f in xs)))
             atmo_st[k] = atmo
             logp_st[k] = logp
             pr_st[k] = pr
@@ -415,9 +434,10 @@ class ScanHybridRunner:
         # trajectory as it arrives, beside the next chunk's launches
         pool = ThreadPoolExecutor(max_workers=1)
         flush_fut = None
-        with diag.span("fastloop.fields", index=0):
+        with diag.span("fastloop.fields", index=0) as fields:
             xs_host = self._precompute(date, K)
             xs_dev = self._upload_fields(xs_host)
+            fields.count("fields", _n_fields(xs_host))
         try:
             for ci in range(n_chunks):
                 if pending is not None:
@@ -443,9 +463,11 @@ class ScanHybridRunner:
                 for _ in range(K):
                     date_next.advance_hours(hm.rcfg.timestep)
                 if ci + 1 < n_chunks:
-                    with diag.span("fastloop.fields", index=ci + 1):
+                    with diag.span("fastloop.fields",
+                                   index=ci + 1) as fields:
                         xs_host = self._precompute(date_next, K)
                         xs_dev = self._upload_fields(xs_host)
+                        fields.count("fields", _n_fields(xs_host))
                 # the chunk's one read of the device: K safety flags
                 with diag.span("fastloop.flag_wait", index=ci):
                     safe = res.safe_st.cpu().numpy()

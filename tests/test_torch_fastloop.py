@@ -26,10 +26,21 @@ from speedyml.hybrid import experiment as jexp
 from speedyml.hybrid.fastloop import ScanHybridRunner as JaxScanRunner
 from speedyml.io.checkpoint import load_prediction as jax_load_prediction
 from speedyml.reservoir.slab import train_ocean as jax_train_ocean
-from speedyml_torch import ModelDate, ScanHybridRunner, convert
+from speedyml_torch import (ModelConfig, ModelDate, ReservoirConfig,
+                            ScanHybridRunner, convert)
+from speedyml_torch.coupler.daily import fordate, init_coupler_state
+from speedyml_torch.domain.decomposition import build_layout, pack_global
+from speedyml_torch.domain.standardize import Standardizer
+from speedyml_torch.hybrid import fastloop
 from speedyml_torch.hybrid.experiment import HybridModel, HybridRunner
-from speedyml_torch.hybrid.fastloop import StepFields, _ml_sane, _qsat_dev
+from speedyml_torch.hybrid.fastloop import (ML_FIELDS, StepFields, _ml_sane,
+                                            _qsat_dev)
+from speedyml_torch.hybrid.state_io import extract
 from speedyml_torch.io.checkpoint import load_prediction
+from speedyml_torch.io.synthetic_boundary import write_synthetic_boundary
+from speedyml_torch.model import Speedy
+from speedyml_torch.physics.radiation import diurnal_tisr
+from speedyml_torch.reservoir.esn import EsnParams
 from tests.test_hybrid import _small_layout, _small_rcfg, _synthetic_truth
 
 torch.set_num_threads(1)
@@ -371,7 +382,10 @@ def test_upload_fields_groups_by_shape(setup):
     assert isinstance(xs, StepFields) and xs.sst_clim.shape == (3, L.il, L.ix)
     xs = xs._replace(fsol=np.ones((3, L.il)), zenit=np.full((3, L.il), 2.0))
     dev = s._upload_fields(xs)
-    assert all(v.dtype == torch.float32 for v in dev)
+    # the fields that are None stay None and go nowhere
+    up = {k: v for k, v in dev._asdict().items() if v is not None}
+    assert set(up) == {"sst_clim", "tisr", "fsol", "zenit"}
+    assert all(v.dtype == torch.float32 for v in up.values())
     np.testing.assert_array_equal(dev.sst_clim.numpy(),
                                   clim.astype(np.float32)[None].repeat(3, 0))
     assert dev.fsol.shape == (3, L.il) and float(dev.zenit.max()) == 2.0
@@ -380,3 +394,128 @@ def test_upload_fields_groups_by_shape(setup):
         dev.tisr.untyped_storage().data_ptr()
     assert dev.fsol.untyped_storage().data_ptr() != \
         dev.tisr.untyped_storage().data_ptr()
+
+
+# ----------------------------------------------------------------------
+# the ML-only chunk's boundary fields on a real Speedy
+
+def _full_fields(sp, date):
+    """The 17 fields a step that ScanHybridRunner built for every model,
+    ML-only ones too, before it built for an ML-only model only the two its
+    step reads."""
+    cs = init_coupler_state(sp.clim, date)
+    rad, _, _ = fordate(sp.dy, sp.clim, cs, date)
+    tisr = diurnal_tisr(date.tyear, date.ihour, sp.dy.tables.gsin,
+                        sp.dy.tables.gcos, sp.config.ix)
+    return dict(sst_clim=cs.sst_am, sstcl=cs.sstcl_ob, sicecl=cs.sice_am,
+                ticecl=cs.tice_am, stl_am=cs.stl_am, snowd_am=cs.snowd_am,
+                soilw_am=cs.soilw_am, tisr=tisr,
+                **{k: rad[k] for k in ("alb_l", "alb_s", "albsfc", "snowc",
+                                       "fsol", "ozupp", "ozone", "zenit",
+                                       "stratz")})
+
+
+@pytest.fixture(scope="module")
+def real(tmp_path_factory):
+    """A float64 SPEEDY on stand-in files, its start state, and an ML-only
+    model over its 1152 regions (n = n_in, a seeded small readout)."""
+    sp = Speedy(ModelConfig(dtype="float64"),
+                write_synthetic_boundary(str(tmp_path_factory.mktemp("bc")),
+                                         4), device=CPU)
+    sp.initialize(1982, 1)
+    L = build_layout(radang_deg=np.degrees(np.asarray(sp.dy.tables.radang)))
+    gs = extract(sp.dy, sp.state)
+    atmo = torch.stack([gs.t, gs.u, gs.v,
+                        torch.clamp(gs.q, min=1e-6)]).float()
+    logp = gs.logp.float()
+    gv0 = pack_global(L, atmo, logp, torch.zeros_like(logp),
+                      torch.full_like(logp, 280.0), torch.zeros_like(logp))
+    idx, tidx = L.maps(CPU)
+    stz = Standardizer(in_mean=gv0[idx], in_std=torch.full((L.R, L.n_in), 5.0),
+                       out_mean=gv0[tidx], out_std=torch.ones(L.R, L.n_out))
+    g = torch.Generator().manual_seed(8)
+    n, shifts = L.n_in, (1, 2)
+    params = EsnParams(
+        a_idx=((torch.arange(n)[:, None] + torch.tensor(shifts)) % n)[
+            None].expand(L.R, n, len(shifts)),
+        a_val=0.3 * torch.randn((L.R, n, len(shifts)), generator=g),
+        win=0.5 * torch.randn((L.R, n), generator=g),
+        wout=0.003 * torch.randn((L.R, L.n_out, n), generator=g),
+        node_map=torch.arange(n), leakage=1.0, a_shift=shifts)
+    hm = HybridModel(layout=L, params=params, stz=stz,
+                     rcfg=ReservoirConfig(), ml_only=True)
+    return sp, hm, torch.zeros(L.R, n), atmo, logp
+
+
+@pytest.fixture
+def no_window_fields(monkeypatch):
+    """The window-only fields' builders raise if the chunk calls them."""
+    def called(*a, **k):
+        raise AssertionError("an ML-only chunk built a window-only field")
+    monkeypatch.setattr(fastloop, "fordate", called)
+    monkeypatch.setattr(fastloop, "init_coupler_state", called)
+
+
+def test_ml_only_chunk_builds_and_uploads_only_what_its_step_reads(
+        real, no_window_fields):
+    sp, hm, *_ = real
+    runner = ScanHybridRunner(hm, sp)
+    K = 8                       # Jan 31 00 h to Feb 1 18 h
+    d0 = ModelDate(1982, 1, 31, 0)
+    xs = runner._precompute(d0, K)
+    assert all(getattr(xs, k) is None for k in StepFields._fields
+               if k not in ML_FIELDS)
+    d = ModelDate(1982, 1, 31, 0)
+    months = set()
+    for k in range(K):
+        months.add(d.imonth)
+        np.testing.assert_array_equal(
+            xs.sst_clim[k], init_coupler_state(sp.clim, d).sst_am)
+        np.testing.assert_array_equal(
+            xs.tisr[k], diurnal_tisr(d.tyear, d.ihour, sp.dy.tables.gsin,
+                                     sp.dy.tables.gcos, sp.config.ix))
+        d.advance_hours(hm.rcfg.timestep)
+    assert months == {1, 2}
+    dev = runner._upload_fields(xs)
+    assert all(getattr(dev, k) is None for k in StepFields._fields
+               if k not in ML_FIELDS)
+    # one buffer holds the two fields
+    store = dev.sst_clim.untyped_storage()
+    assert store.data_ptr() == dev.tisr.untyped_storage().data_ptr()
+    assert store.nbytes() == 2 * xs.sst_clim.nbytes
+    assert torch.equal(dev.sst_clim, torch.from_numpy(xs.sst_clim)) and \
+        torch.equal(dev.tisr, torch.from_numpy(xs.tisr))
+
+
+def test_ml_only_run_bitwise_that_on_all_seventeen_fields(real):
+    """The chunked ML-only run on the two fields its step reads gives
+    bitwise the run on all 17, and the safety predicate sees None for the
+    window-only fields."""
+    sp, hm, x0, atmo, logp = real
+
+    class Full(ScanHybridRunner):
+        def _host_step_fields(self, date):
+            return _full_fields(self.speedy, date)
+
+    seen = []
+
+    def sane(atmo2, logp2, xs):
+        seen.append(xs)
+        return _ml_sane(atmo2, logp2)
+
+    K, chunks = 4, 2
+    date = ModelDate(1982, 1, 31, 0)
+    runner = ScanHybridRunner(hm, sp, chunk=K)
+    runner._ml_safe_fn = sane
+    two = runner.run(x0, atmo, logp, None, date, K * chunks, stream=True)
+    full = Full(hm, sp, chunk=K).run(x0, atmo, logp, None, date, K * chunks,
+                                     stream=True)
+    assert two["steps_done"] == full["steps_done"] == K * chunks
+    for key in ("x", "atmo_end", "logp_end", "precip_t"):
+        assert torch.equal(two[key], full[key]), key
+    assert two["summary"].keys() == full["summary"].keys()
+    for key, v in two["summary"].items():
+        np.testing.assert_array_equal(v, full["summary"][key], err_msg=key)
+    assert len(seen) == K * chunks
+    assert all(xs.tisr.shape == atmo.shape[-2:] and xs.sstcl is None
+               and xs.fsol is None for xs in seen)

@@ -7,7 +7,8 @@ a record whose host interval lies inside that range's, to 50 us (the two
 read one clock). The loops' spans are checked at the full T30 grid with a
 narrow reservoir (n = n_in, two shifts), the window dry: an E = 2 ensemble
 and an ML-only chunked loop give each documented span once a step or chunk,
-and their outputs are bitwise those of the same run untraced. The
+and their outputs are bitwise those of the same run untraced; a hybrid
+chunked loop keeps the fordate span the ML-only one no longer has. The
 benchmark's reader of the spans (benchmark/harness/program_spans.py) takes
 the first traced run of a store.
 """
@@ -326,27 +327,49 @@ def test_chunked_run_spans_once_a_chunk_and_bitwise_outputs(models):
                  "fastloop.flush_wait": range(2, chunks + 1)}
     for name, want in per_chunk.items():
         assert sorted(r["index"] for r in by[name]) == list(want), name
-    assert sorted(r["index"] for r in by["fastloop.fields.host.fordate"]) \
-        == sorted(list(range(chunks)) * K)
     assert len(by["esn.advance"]) == len(by["esn.readout"]) == K * chunks
-    assert set(by) == set(per_chunk) | {"fastloop.fields.host.fordate",
-                                        "esn.advance", "esn.readout"}
+    # the ML-only chunk builds no radiation fields: no fordate span
+    assert set(by) == set(per_chunk) | {"esn.advance", "esn.readout"}
     ids = {r["id"]: r for r in recs}
     parent = {n: ids[by[n][0]["parent"]]["name"] for n in
               ("fastloop.fields.host", "fastloop.fields.upload",
-               "fastloop.fields.host.fordate", "esn.readout")}
+               "esn.readout")}
     assert parent == {"fastloop.fields.host": "fastloop.fields",
                       "fastloop.fields.upload": "fastloop.fields",
-                      "fastloop.fields.host.fordate": "fastloop.fields.host",
                       "esn.readout": "fastloop.chunk"}
     assert all(r["counts"] == {"steps": K} for r in by["fastloop.chunk"])
+    assert all(r["counts"] == {"fields": 2} for r in by["fastloop.fields"])
     # the writer thread's flushes belong to the run
     assert {r["run"] for r in recs} == {recs[0]["run"]}
     assert {r["loop"] for r in recs} == {"fastloop"}
     assert all(r["parent"] is None for r in by["fastloop.flush"])
-    fordate = program_spans.chunk_median(K, "fastloop.fields.host.fordate")
-    fields = program_spans.chunk_median(K, "fastloop.fields")
-    assert 0 < fordate < fields
+    assert program_spans.chunk_median(
+        K, "fastloop.fields.host.fordate") is None
+    assert program_spans.chunk_median(K, "fastloop.fields") > 0
+
+
+def test_hybrid_chunked_run_keeps_fordate_and_all_fields(models):
+    """The hybrid chunk still builds every field its window reads, fordate
+    once a step under the host's fields."""
+    K, chunks = 2, 2
+    runner = ScanHybridRunner(models["hybrid"], models["sp"], physics=False,
+                              chunk=K)
+    with diag.tracing():
+        out = runner.run(torch.zeros(models["L"].R, models["n"]),
+                         models["atmo"], models["logp"], None, START,
+                         K * chunks, stream=True)
+    assert not out["aborted"] and out["steps_done"] == K * chunks
+    recs = diag.spans()
+    names = {r["id"]: r["name"] for r in recs}
+    fordate = [r for r in recs if r["name"] == "fastloop.fields.host.fordate"]
+    assert sorted(r["index"] for r in fordate) == \
+        sorted(list(range(chunks)) * K)
+    assert {names[r["parent"]] for r in fordate} == {"fastloop.fields.host"}
+    fields = [r for r in recs if r["name"] == "fastloop.fields"]
+    assert sorted(r["index"] for r in fields) == list(range(chunks))
+    assert all(r["counts"] == {"fields": 17} for r in fields)
+    fordate_ms = program_spans.chunk_median(K, "fastloop.fields.host.fordate")
+    assert 0 < fordate_ms < program_spans.chunk_median(K, "fastloop.fields")
 
 
 def test_chunk_steps_count_stops_at_an_abort(models):
