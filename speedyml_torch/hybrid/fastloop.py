@@ -317,8 +317,9 @@ class ScanHybridRunner:
             if hm.ml_only:
                 model_gv = None
             else:
-                model_gv, safe = self._model_gv(atmo, logp, sst, ss, ti, xs,
-                                                k)
+                with diag.span("fastloop.window", device=True):
+                    model_gv, safe = self._model_gv(atmo, logp, sst, ss, ti,
+                                                    xs, k)
             x, atmo, logp, pr = hm.step(x, gv, model_gv)
             if hm.ml_only:
                 safe = _ml_sane(atmo, logp) if self._ml_safe_fn is None \
@@ -477,13 +478,19 @@ class ScanHybridRunner:
                 aborted = upto < K
                 chunk.count("steps", upto)
                 if ocean is not None and not aborted:
-                    with diag.span("fastloop.ocean", index=ci):
-                        gv_week = compose_week_inputs(res.gv_last,
-                                                      res.gv_sum, K, L)
-                        x_ocean, sst_core = ocean.step(x_ocean, gv_week)
-                        grid = ocean.compose_sst(sst_core, clim_last, L)
-                        anom = torch.as_tensor(grid - clim_last,
-                                               dtype=self.dtype, device=dev)
+                    with diag.span("fastloop.ocean", index=ci) as osp:
+                        with diag.span("fastloop.ocean.step", device=True):
+                            gv_week = compose_week_inputs(res.gv_last,
+                                                          res.gv_sum, K, L)
+                            x_ocean, sst_core = ocean.step(x_ocean, gv_week)
+                        # the host's blend reads the prediction back: the
+                        # loop's one sync besides the flags
+                        with diag.span("fastloop.ocean.compose"):
+                            grid = ocean.compose_sst(sst_core, clim_last, L)
+                            anom = torch.as_tensor(grid - clim_last,
+                                                   dtype=self.dtype,
+                                                   device=dev)
+                        osp.count("active", int(ocean.active.sum()))
                 x, atmo, logp, pr = res.x, res.atmo, res.logp, res.pr
                 date = date_next
                 steps_done += upto
