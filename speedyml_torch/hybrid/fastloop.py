@@ -8,13 +8,13 @@ and keeps or writes the step's fields. This module runs K steps (one ocean
 launch of the K windows and reservoir steps is queued without waiting for a
 result, the K outputs go into preallocated (K, ...) stacks, and the safety
 flags are read once, after the chunk. It is the loop-level analog of the
-reference's per-step file/MPI cycle (src/mpires.f90:218-804), and the unit
-a CUDA graph would capture.
+reference's per-step file/MPI cycle (src/mpires.f90:218-804). On the card
+each step's window is one replay of a captured CUDA graph (_WindowGraph).
 
   for each chunk of K steps:                       [host]
     K steps, no host sync:                         [device]
       SST = clim(k) + anomaly -> pack gv
-      SPEEDY window (full physics)                 <- surf/qcorh on device
+      SPEEDY window (full physics; a graph replay) <- surf/qcorh on device
       pack model_gv -> reservoir advance+readout -> scatter
       accumulate week-sum supervector + safety flags
     stage the next chunk's boundary fields (host), read the K flags
@@ -82,8 +82,9 @@ class StepFields(NamedTuple):
     stratz: np.ndarray = None
 
 
-# the fields the ML-only step reads (run_chunk)
+# the fields the ML-only step reads (run_chunk); the window reads the rest
 ML_FIELDS = ("sst_clim", "tisr")
+WINDOW_FIELDS = tuple(f for f in StepFields._fields if f not in ML_FIELDS)
 
 
 class ChunkResult(NamedTuple):
@@ -127,6 +128,49 @@ def _qsat_dev(ta, pres_norm):
     return 622.0 * es / (pres_norm - 0.378 * es)
 
 
+class _WindowGraph:
+    """One CUDA graph of ScanHybridRunner._window_eager: the window's ~54k
+    launches of a step captured once and replayed every step, in place of
+    the host's eager dispatch. It reads static input buffers that each
+    replay fills by copy (atmo, logp, sst, ss, ti and the step's window
+    fields, so no step's own address is captured) and writes static output
+    buffers (the packed model supervector and the safety flag) that the
+    next replay overwrites. Its memory is a pool of its own, the window's
+    working set."""
+
+    def __init__(self, body, args, key):
+        self.key = key
+        self.inputs = [a.clone() for a in args]
+        stream = torch.cuda.Stream(args[0].device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            # one eager pass first, so that lazy set-up (library handles,
+            # workspaces, FFT plans) is done outside the capture
+            body(*self._call())
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's work (the writer's flush)
+            # cannot break the capture
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = body(*self._call())
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def _call(self):
+        atmo, logp, sst, ss, ti, *fields = self.inputs
+        xs = StepFields(sst_clim=None, tisr=None,
+                        **{n: f[None] for n, f in zip(WINDOW_FIELDS, fields)})
+        return atmo, logp, sst, ss, ti, xs, 0
+
+    def replay(self, args):
+        """The outputs of the window on `args`, on the current stream."""
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        return self.outputs
+
+
 class ScanHybridRunner:
     """Chunked device-resident prediction loop; drop-in alternative to
     HybridRunner.run for production-length integrations. It runs on the
@@ -160,6 +204,10 @@ class ScanHybridRunner:
         self.precip_debias = None
         self._side = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        # the window's CUDA graph (on the card; captured at the first
+        # window) and the number of captures made
+        self._graph = None
+        self._captures = 0
         if speedy is None:
             self.fc = None
             self.dtype = torch.float32
@@ -262,7 +310,28 @@ class ScanHybridRunner:
     def _model_gv(self, atmo, logp, sst, ss, ti, xs: StepFields, k: int):
         """The window from (atmo, logp) under step k's boundary state with
         the fed-back SST, packed as the model supervector, and its safety
-        flag. Nothing here reads a value back to the host."""
+        flag. Nothing here reads a value back to the host.
+
+        On the card this replays the window's CUDA graph, captured at the
+        first call and again when the shapes change; the two tensors it
+        returns are then the graph's output buffers, which the next call
+        overwrites: read them in stream order before it, and clone what
+        must outlive the step. Elsewhere it runs the window eagerly."""
+        if self.device.type != "cuda":
+            return self._window_eager(atmo, logp, sst, ss, ti, xs, k)
+        args = (atmo, logp, sst, ss, ti) + tuple(
+            getattr(xs, f)[k] for f in WINDOW_FIELDS)
+        key = (tuple(a.shape for a in args), self.dtype)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None          # its pool goes before the next one
+            self._graph = _WindowGraph(self._window_eager, args, key)
+            self._captures += 1
+        diag.count("graphed", 1)
+        return self._graph.replay(args)
+
+    def _window_eager(self, atmo, logp, sst, ss, ti, xs: StepFields, k: int):
+        """_model_gv's window, launched op by op (what the graph
+        captures)."""
         # the hybrid-SST gate + ice blending of ini_sea (cpl_sea.f90:38-48,
         # coupler.daily.init_coupler_state)
         sstcl, sicecl, ticecl = xs.sstcl[k], xs.sicecl[k], xs.ticecl[k]
@@ -306,6 +375,7 @@ class ScanHybridRunner:
         safe_st = torch.empty((K,), dtype=torch.bool, device=dev)
         gv_sum = torch.zeros((L.gv_len,), dtype=f32, device=dev)
         gv = gv_sum
+        captures = self._captures
         for k in range(K):
             # sst rides the model dtype down the WINDOW path; the packed
             # supervector is always f32 (the HybridRunner.pack contract)
@@ -330,6 +400,8 @@ class ScanHybridRunner:
             pr_st[k] = pr
             sst_st[k] = sst
             safe_st[k] = safe
+        if self._captures > captures:
+            diag.count("captures", self._captures - captures)
         return ChunkResult(x, atmo, logp, pr, gv_sum, gv, atmo_st, logp_st,
                            pr_st, sst_st, safe_st)
 
